@@ -1,0 +1,110 @@
+"""Model configuration: the port's copy of the JAX package's
+``configs/base.py`` for the attention-only dense configs.
+
+Every architecture is a :class:`ModelConfig`.  The pipeline unit is a
+*block* (a homogeneous super-layer), so stage boundaries can be runtime
+arguments.  The MoE and SSM sub-configs arrive with the families that use
+them (ROADMAP.md Queue 1 items 8 and 9); the fields stay, ``None``, so a
+config has the same fields in both packages.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description (same fields and meanings as the JAX
+    package's ``ModelConfig``)."""
+
+    name: str
+    family: str
+    num_layers: int               # total sublayers, == num_blocks*len(pattern)
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None          # defaults to d_model // num_heads
+    layer_pattern: Tuple[str, ...] = ("attn",)
+    moe: Optional[object] = None            # MoE sub-config (not ported)
+    ssm: Optional[object] = None            # Mamba2 sub-config (not ported)
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    sliding_window: Optional[int] = None    # None = full attention
+    causal: bool = True                     # False for encoder-only (audio)
+    rope_theta: float = 1e6
+    rms_eps: float = 1e-6
+    embedding_inputs: bool = False
+    is_decoder: bool = True
+    source: str = ""
+
+    def __post_init__(self):
+        if self.head_dim is None:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        if self.num_layers % len(self.layer_pattern) != 0:
+            raise ValueError(
+                f"{self.name}: num_layers={self.num_layers} not divisible by "
+                f"pattern length {len(self.layer_pattern)}")
+
+    @property
+    def num_blocks(self) -> int:
+        return self.num_layers // len(self.layer_pattern)
+
+    def param_count(self) -> int:
+        """Parameters of a dense attention model (embed + blocks + head)."""
+        d, h = self.d_model, self.head_dim
+        n_q, n_kv = self.num_heads, self.num_kv_heads
+        total = self.vocab_size * d
+        if self.is_decoder:
+            total += self.vocab_size * d
+        per_block = (d * (n_q * h) + 2 * d * (n_kv * h) + (n_q * h) * d
+                     + 2 * d + 3 * d * self.d_ff)
+        return total + self.num_blocks * per_block
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+_ARCH_MODULES = {
+    "qwen3-32b": "qwen3_32b",
+    "qwen3-4b": "qwen3_4b",
+    "qwen2-0.5b": "qwen2_0_5b",
+    "qwen3-8b": "qwen3_8b",
+}
+
+#: Archs of the JAX package the port does not run yet, with the ROADMAP
+#: item that ports each.
+_NOT_PORTED = {
+    "jamba-1.5-large-398b": "Queue 1 item 8 (Mamba2/Jamba) and item 9 (MoE)",
+    "deepseek-moe-16b": "Queue 1 item 9 (MoE)",
+    "mixtral-8x22b": "Queue 1 item 9 (MoE)",
+    "llava-next-34b": "Queue 1 item 6h (embedding-input configs)",
+    "mamba2-370m": "Queue 1 item 8 (Mamba2)",
+    "hubert-xlarge": "Queue 1 item 6h (encoder configs)",
+}
+
+ARCH_IDS = tuple(_ARCH_MODULES)
+
+
+def _module(arch: str):
+    if arch in _NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported to repro_torch yet; see ROADMAP.md "
+            f"{_NOT_PORTED[arch]}")
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
+    return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    """The full (published) config for ``--arch <id>``."""
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    """Reduced variant of the same family: 2 blocks, d_model <= 256."""
+    return _module(arch).smoke_config()

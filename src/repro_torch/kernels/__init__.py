@@ -1,0 +1,10 @@
+"""Hand-written Hopper kernels, their builds and their plain versions.
+
+* ``csrc/*.cu`` -- CUDA C++ sources for ``sm_90a`` (built by ``build``)
+* ``flash_attention`` -- wrapper of kernel K1 (replaces the Pallas
+  ``repro.kernels.flash_attention``), with its launch count
+* ``ref`` -- plain PyTorch versions
+* ``ops`` -- ``impl`` dispatch between the two
+* ``cases`` -- the shapes and tolerances at which a kernel is held against
+  its plain version
+"""

@@ -1,0 +1,210 @@
+"""The port's layers, attention and model against the JAX package's, on
+the same weights (through ``params_from_jax``) and the same inputs."""
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
+from repro.models import Model as JaxModel  # noqa: E402
+from repro.models import attention as jax_attn  # noqa: E402
+from repro.models import layers as jax_layers  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
+from repro_torch.models import attention as attn  # noqa: E402
+from repro_torch.models import blocks as blk  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
+
+# tests/test_pipeline.py's tolerance for fp32 logits.
+TOL = dict(atol=1e-4, rtol=1e-4)
+ARCHS = ["qwen3-4b", "qwen3-8b", "qwen3-32b", "qwen2-0.5b"]
+
+
+def _np(x):
+    return np.asarray(x, np.float32)
+
+
+def _jax_params(cfg, seed=0):
+    params = JaxModel(cfg).init_params(jax.random.PRNGKey(seed), jnp.float32)
+    return params, jax.tree.map(np.asarray, params)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_configs_are_copies(arch):
+    for port, ref in ((get_config(arch), jax_get_config(arch)),
+                      (get_smoke_config(arch), jax_smoke(arch))):
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+        assert port.num_blocks == ref.num_blocks
+        assert port.param_count() == ref.param_count()
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "mixtral-8x22b",
+                                  "hubert-xlarge"])
+def test_unported_arch_names_its_roadmap_item(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_config(arch)
+    with pytest.raises(KeyError):
+        get_smoke_config("no-such-arch")
+
+
+def test_rms_norm_rope_mlp_match_jax():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 16, 4, 64)).astype(np.float32)
+    scale = rng.standard_normal(64).astype(np.float32)
+    np.testing.assert_allclose(
+        layers.rms_norm(torch.from_numpy(x), torch.from_numpy(scale)).numpy(),
+        _np(jax_layers.rms_norm(jnp.asarray(x), jnp.asarray(scale))),
+        atol=1e-5, rtol=1e-5)
+    pos = np.broadcast_to(np.arange(16, dtype=np.int32), (2, 16))
+    np.testing.assert_allclose(
+        layers.apply_rope(torch.from_numpy(x), torch.from_numpy(pos.copy()),
+                          1e6).numpy(),
+        _np(jax_layers.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e6)),
+        atol=1e-5, rtol=1e-5)
+    w = {k: rng.standard_normal(s).astype(np.float32) * 0.1
+         for k, s in (("wi", (64, 96)), ("wg", (64, 96)), ("wo", (96, 64)))}
+    h = x[:, :, 0]
+    np.testing.assert_allclose(
+        layers.mlp({k: torch.from_numpy(v) for k, v in w.items()},
+                   torch.from_numpy(h)).numpy(),
+        _np(jax_layers.mlp({k: jnp.asarray(v) for k, v in w.items()},
+                           jnp.asarray(h))),
+        atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "qwen2-0.5b"])
+def test_attention_forward_matches_jax(arch):
+    cfg = jax_smoke(arch)
+    jp, np_params = _jax_params(cfg)
+    one = jax.tree.map(lambda a: a[0], jp["blocks"]["sub0"]["mixer"])
+    if cfg.qkv_bias:     # zeros at init: give the bias path real values
+        rng = np.random.default_rng(5)
+        one = {k: (jnp.asarray(rng.standard_normal(v.shape), jnp.float32)
+                   * 0.1 if k.startswith("b") else v) for k, v in one.items()}
+    x = np.random.default_rng(1).standard_normal(
+        (2, 48, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(48, dtype=np.int32), (2, 48)).copy()
+    fwd = jax.jit(jax_attn.attention_forward, static_argnums=1)
+    want = fwd(one, cfg, jnp.asarray(x), jnp.asarray(pos))
+    port = params_from_jax(jax.tree.map(np.asarray, one), device="cpu")
+    got = attn.attention_forward(port, get_smoke_config(arch),
+                                 torch.from_numpy(x), torch.from_numpy(pos))
+    np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 24),
+                                           (False, None)])
+def test_port_attention_matches_flash_attention_jnp(causal, window):
+    """The kernel's plain version on the model's [B, S, H, D] layout
+    against the jnp flash attention the JAX model calls."""
+    rng = np.random.default_rng(2)
+    q = rng.standard_normal((2, 64, 8, 64)).astype(np.float32)
+    k = rng.standard_normal((2, 64, 2, 64)).astype(np.float32)
+    v = rng.standard_normal((2, 64, 2, 64)).astype(np.float32)
+    want = jax_attn.flash_attention_jnp(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window, chunk_q=32, chunk_k=32)
+    tq, tk, tv = (torch.from_numpy(a).transpose(1, 2) for a in (q, k, v))
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(got.transpose(1, 2).numpy(), _np(want),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("arch,layers_", [("qwen3-4b", None),
+                                          ("qwen3-8b", 6),
+                                          ("qwen2-0.5b", None)])
+def test_model_forward_matches_jax(arch, layers_):
+    cfg = jax_smoke(arch)
+    if layers_:
+        cfg = dataclasses.replace(cfg, num_layers=layers_)
+    jp, np_params = _jax_params(cfg)
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 40))
+    want, _ = JaxModel(cfg).forward(jp, tokens=jnp.asarray(tokens))
+    port_cfg = dataclasses.replace(get_smoke_config(arch),
+                                   num_layers=cfg.num_layers)
+    got = Model(port_cfg).forward(params_from_jax(np_params, device="cpu"),
+                                  tokens=torch.from_numpy(tokens))
+    np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
+    # ...and from embeddings (the embedding-input path of Model.forward)
+    x = np.asarray(jp["embed"]["table"])[tokens]
+    got_e = Model(port_cfg).forward(params_from_jax(np_params, device="cpu"),
+                                    embeds=torch.from_numpy(x))
+    np.testing.assert_allclose(got_e.numpy(), _np(want), **TOL)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "qwen2-0.5b"])
+def test_init_params_mirror_jax_tree(arch):
+    """Same nested layout, shapes and init scales as the JAX init."""
+    cfg = jax_smoke(arch)
+    _, ref = _jax_params(cfg)
+    port = Model(get_smoke_config(arch)).init_params(0, device="cpu")
+    ref_leaves = jax.tree_util.tree_flatten_with_path(ref)[0]
+    flat = {}
+
+    def walk(node, path):
+        for key, val in node.items():
+            if isinstance(val, dict):
+                walk(val, path + (key,))
+            else:
+                flat[path + (key,)] = val
+    walk(port, ())
+    assert len(flat) == len(ref_leaves)
+    for path, leaf in ref_leaves:
+        key = tuple(p.key for p in path)
+        t = flat[key]
+        assert tuple(t.shape) == leaf.shape, key
+        if leaf.std() > 0:       # random leaves: same scale within 10%
+            assert abs(float(t.std()) / float(leaf.std()) - 1) < 0.1, key
+        else:                    # ones / zeros
+            np.testing.assert_array_equal(t.numpy(), leaf)
+
+
+def test_init_block_has_one_blocks_leaves():
+    cfg = get_smoke_config("qwen2-0.5b")
+    one = blk.init_block(torch.Generator().manual_seed(0), cfg,
+                         device="cpu")
+    stacked = Model(cfg).init_params(0, device="cpu")["blocks"]
+    ref = blk.block_params(stacked, 0)
+    assert one.keys() == ref.keys() == {"sub0"}
+    for name in ("ln1", "mixer", "ln2", "ffn"):
+        for leaf, t in one["sub0"][name].items():
+            assert t.shape == ref["sub0"][name][leaf].shape, (name, leaf)
+
+
+def test_params_from_jax_dtype_and_device():
+    cfg = jax_smoke("qwen3-4b")
+    _, ref = _jax_params(cfg)
+    port = params_from_jax(ref, dtype=torch.bfloat16, device="cpu")
+    t = port["blocks"]["sub0"]["mixer"]["wq"]
+    assert t.dtype == torch.bfloat16 and t.device.type == "cpu"
+    assert tuple(t.shape) == ref["blocks"]["sub0"]["mixer"]["wq"].shape
+
+
+def test_block_forward_attn_impl_ref_equals_auto_on_cpu():
+    cfg = get_smoke_config("qwen3-4b")
+    params = Model(cfg).init_params(1, device="cpu")
+    bp = blk.block_params(params["blocks"], 1)
+    x = torch.randn(1, 20, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(0))
+    pos = torch.arange(20).expand(1, 20)
+    torch.testing.assert_close(
+        blk.block_forward(bp, cfg, x, pos),
+        blk.block_forward(bp, cfg, x, pos, attn_impl="ref"),
+        atol=0.0, rtol=0.0)
+
+
+def test_entry_points_refuse_missing_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    with pytest.raises(RuntimeError, match="cuda"):
+        Model(get_smoke_config("qwen3-4b")).init_params(0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        params_from_jax({"w": np.zeros(2, np.float32)})
