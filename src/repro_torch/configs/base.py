@@ -1,17 +1,34 @@
 """Model configuration: the port's copy of the JAX package's
-``configs/base.py`` for the attention-only dense configs.
+``configs/base.py`` for the dense attention and Mamba2 configs.
 
 Every architecture is a :class:`ModelConfig`.  The pipeline unit is a
 *block* (a homogeneous super-layer), so stage boundaries can be runtime
-arguments.  The MoE and SSM sub-configs arrive with the families that use
-them (ROADMAP.md Queue 1 items 8 and 9); the fields stay, ``None``, so a
-config has the same fields in both packages.
+arguments.  The MoE sub-config arrives with the family that uses it
+(ROADMAP.md Queue 1 item 9); the field stays, ``None``, so a config has
+the same fields in both packages.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD) settings."""
+
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64            # SSD head dim (P)
+    chunk_size: int = 256
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def num_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,7 +47,7 @@ class ModelConfig:
     head_dim: Optional[int] = None          # defaults to d_model // num_heads
     layer_pattern: Tuple[str, ...] = ("attn",)
     moe: Optional[object] = None            # MoE sub-config (not ported)
-    ssm: Optional[object] = None            # Mamba2 sub-config (not ported)
+    ssm: Optional[SSMConfig] = None
     qk_norm: bool = False
     qkv_bias: bool = False
     sliding_window: Optional[int] = None    # None = full attention
@@ -53,16 +70,35 @@ class ModelConfig:
     def num_blocks(self) -> int:
         return self.num_layers // len(self.layer_pattern)
 
+    def block_has_attn(self) -> bool:
+        return "attn" in self.layer_pattern
+
+    def block_has_mamba(self) -> bool:
+        return "mamba" in self.layer_pattern
+
     def param_count(self) -> int:
-        """Parameters of a dense attention model (embed + blocks + head)."""
+        """Rough parameter count (embed + blocks + head), the JAX
+        package's formula for the dense and Mamba2 families."""
         d, h = self.d_model, self.head_dim
         n_q, n_kv = self.num_heads, self.num_kv_heads
         total = self.vocab_size * d
         if self.is_decoder:
             total += self.vocab_size * d
-        per_block = (d * (n_q * h) + 2 * d * (n_kv * h) + (n_q * h) * d
-                     + 2 * d + 3 * d * self.d_ff)
-        return total + self.num_blocks * per_block
+        per_pattern = 0
+        for kind in self.layer_pattern:
+            if kind == "attn":
+                per_pattern += d * (n_q * h) + 2 * d * (n_kv * h) + (n_q * h) * d
+            else:  # mamba2
+                s = self.ssm
+                din = s.d_inner(d)
+                nh = s.num_heads(d)
+                # in_proj produces [z, x, B, C, dt]
+                per_pattern += d * (2 * din + 2 * s.d_state + nh) + din * d
+                per_pattern += s.d_conv * (din + 2 * s.d_state)
+            per_pattern += 2 * d  # norms
+            if kind == "attn" and self.d_ff > 0 and self.family != "ssm":
+                per_pattern += 3 * d * self.d_ff
+        return total + self.num_blocks * per_pattern
 
 
 # ---------------------------------------------------------------------------
@@ -74,16 +110,17 @@ _ARCH_MODULES = {
     "qwen3-4b": "qwen3_4b",
     "qwen2-0.5b": "qwen2_0_5b",
     "qwen3-8b": "qwen3_8b",
+    "mamba2-370m": "mamba2_370m",
 }
 
 #: Archs of the JAX package the port does not run yet, with the ROADMAP
 #: item that ports each.
 _NOT_PORTED = {
-    "jamba-1.5-large-398b": "Queue 1 item 8 (Mamba2/Jamba) and item 9 (MoE)",
+    "jamba-1.5-large-398b": "Queue 1 item 9 (MoE; its Mamba2 sublayers "
+                            "are ported)",
     "deepseek-moe-16b": "Queue 1 item 9 (MoE)",
     "mixtral-8x22b": "Queue 1 item 9 (MoE)",
     "llava-next-34b": "Queue 1 item 6h (embedding-input configs)",
-    "mamba2-370m": "Queue 1 item 8 (Mamba2)",
     "hubert-xlarge": "Queue 1 item 6h (encoder configs)",
 }
 

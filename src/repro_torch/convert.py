@@ -3,7 +3,9 @@
 The JAX parameters arrive as a nested dict of numpy arrays (the caller
 runs ``jax.tree.map(np.asarray, params)``); both packages use the same
 nested layout with block leaves stacked ``[num_blocks, ...]``, so the
-bridge is a leaf-by-leaf copy.
+bridge is a leaf-by-leaf copy.  The Mamba2 leaves that the JAX init holds
+in fp32 whatever the model's dtype (``A_log``, ``D``, ``dt_bias``) stay
+fp32.
 """
 from __future__ import annotations
 
@@ -12,22 +14,24 @@ from typing import Mapping, Union
 import numpy as np
 import torch
 
+from repro_torch.models.mamba2 import FP32_LEAVES
 from repro_torch.util.device import resolve_device
 
 
 def params_from_jax(tree: Mapping, dtype=torch.float32,
                     device: Union[str, torch.device] = "cuda") -> dict:
     """Nested dict of numpy arrays -> nested dict of tensors on ``device``
-    in ``dtype``."""
+    in ``dtype`` (fp32 for the leaves named in ``FP32_LEAVES``)."""
     dev = resolve_device(device)
 
-    def leaf(a) -> torch.Tensor:
+    def leaf(a, name) -> torch.Tensor:
         t = torch.from_numpy(np.array(a, dtype=np.float32))   # a copy
-        return t.to(device=dev, dtype=dtype)
+        return t.to(device=dev, dtype=torch.float32
+                    if name in FP32_LEAVES else dtype)
 
-    def walk(node):
+    def walk(node, name=None):
         if isinstance(node, Mapping):
-            return {k: walk(v) for k, v in node.items()}
-        return leaf(node)
+            return {k: walk(v, k) for k, v in node.items()}
+        return leaf(node, name)
 
     return walk(tree)

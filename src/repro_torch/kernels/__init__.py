@@ -3,6 +3,10 @@
 * ``csrc/*.cu`` -- CUDA C++ sources for ``sm_90a`` (built by ``build``)
 * ``flash_attention`` -- wrapper of kernel K1 (replaces the Pallas
   ``repro.kernels.flash_attention``), with its launch count
+* ``decode_attention`` -- wrapper of kernel K2 (replaces the Pallas
+  ``repro.kernels.decode_attention``), with its launch count
+* ``ssd_scan`` -- wrapper of kernel K3 (replaces the Pallas
+  ``repro.kernels.ssd_scan``), with its launch count
 * ``ref`` -- plain PyTorch versions
 * ``ops`` -- ``impl`` dispatch between the two
 * ``cases`` -- the shapes and tolerances at which a kernel is held against

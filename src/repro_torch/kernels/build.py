@@ -9,8 +9,9 @@ interface::
 The library lands in ``build/kernels/`` at the repository root; its name
 carries a hash of the source and the flags, so an edited source rebuilds
 and an unchanged one is loaded as it is.  A source builds at first use
-(:func:`load`).  A failed build raises with ``nvcc``'s output; there is no
-fallback.
+(:func:`load`), or ahead of it (:func:`build_kernels` runs one ``nvcc``
+per source in parallel).  A failed build raises with ``nvcc``'s output;
+there is no fallback.
 """
 from __future__ import annotations
 
@@ -19,8 +20,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -66,6 +68,14 @@ def build_kernel(name: str) -> Optional[str]:
         raise RuntimeError(f"kernel build failed: nvcc {name}\n{r.stdout}")
     os.replace(tmp, out)        # atomic: no half-written library
     return r.stdout
+
+
+def build_kernels(names: Sequence[str]) -> Dict[str, Optional[str]]:
+    """:func:`build_kernel` for each name, with one ``nvcc`` per source,
+    all started together.  Raises if any build fails."""
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        futures = {name: pool.submit(build_kernel, name) for name in names}
+        return {name: f.result() for name, f in futures.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

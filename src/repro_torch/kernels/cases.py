@@ -1,10 +1,14 @@
-"""The shapes and tolerances at which K1 (flash attention) is held against
-its plain version, in the tests and on the card.
+"""The shapes and tolerances at which each kernel is held against its
+plain version, in the tests and on the card.
 
-A case is ``(B, Hq, Hkv, S, D, causal, window, dtype)``, the dtype as the
-name of a torch dtype.
+K1 (flash attention): a case is ``(B, Hq, Hkv, S, D, causal, window,
+dtype)``.  K2 (decode attention): ``(B, Hq, Hkv, S, D, index, window,
+dtype)``.  K3 (SSD scan): ``(b, S, H, P, N, chunk, dtype)``.  Dtypes are
+named as torch dtypes.
 """
 from __future__ import annotations
+
+import numpy as np
 
 # The JAX package's FLASH_CASES (tests/test_kernels.py).
 FLASH_CASES = [
@@ -41,6 +45,78 @@ MAIN_TOLERANCE = dict(atol=1e-2, rtol=1e-2)
 MAIN_RMS_LIMIT = 2e-4
 
 
+# K2: the JAX package's DECODE_CASES (tests/test_kernels.py).
+DECODE_CASES = [
+    (2, 8, 2, 512, 64, 300, None, "float32"),
+    (1, 4, 4, 256, 128, 17, None, "float32"),
+    (2, 8, 2, 512, 64, 400, 128, "float32"),      # sliding window
+    (1, 14, 2, 256, 64, 255, None, "float32"),    # qwen2 ratios (group 7)
+    (2, 8, 2, 512, 64, 300, None, "bfloat16"),
+]
+# S not a multiple of the kernel's tile, odd groups, qwen2's head dim.
+DECODE_RAGGED_CASES = [
+    (1, 6, 2, 200, 64, 150, None, "float32"),
+    (2, 12, 4, 333, 128, 332, 100, "bfloat16"),
+    (1, 14, 2, 300, 56, 123, None, "bfloat16"),
+]
+# The main path: qwen3-4b's decode, q [1, 32, 128] against a 2048-slot
+# cache holding a 1024-token prompt and 16 decoded tokens.
+DECODE_MAIN_CASE = (1, 32, 8, 2048, 128, 1040, None, "bfloat16")
+# There a row averages 1041 live slots, so the output's rms is about 0.054
+# for N(0, 1) inputs and the bf16 limit of 5e-2 would be of its size.  At
+# the main shape: 1e-4 elementwise (0.2% of rms(ref)) plus 1e-2 of |ref|
+# (one bf16 ulp is at most 2^-7 of a value), and an rms error under
+# DECODE_MAIN_RMS_LIMIT of rms(ref): about 5x the 4.4e-6 that K2 measured
+# on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py prints the readings).
+DECODE_MAIN_TOLERANCE = dict(atol=1e-4, rtol=1e-2)
+DECODE_MAIN_RMS_LIMIT = 2e-5
+
+# K3: the JAX package's SSD_CASES (tests/test_kernels.py).
+SSD_CASES = [
+    (2, 256, 8, 64, 32, 64, "float32"),
+    (1, 128, 4, 32, 64, 32, "float32"),
+    (1, 256, 16, 64, 128, 64, "float32"),         # mamba2-370m dims
+    (2, 128, 8, 64, 32, 32, "bfloat16"),
+]
+# S not a multiple of the chunk (the Pallas kernel would refuse these).
+SSD_RAGGED_CASES = [
+    (1, 200, 4, 64, 128, 64, "float32"),
+    (2, 77, 3, 32, 32, 32, "bfloat16"),
+]
+# The main path: one mamba2-370m block at S = 1024 (H 32, P 64, N 128,
+# the model's chunk of 256).
+SSD_MAIN_CASE = (1, 1024, 32, 64, 128, 256, "bfloat16")
+# There y's max |ref| is about 300 against an rms of about 14, so the JAX
+# bf16 limit (5e-2 of max |ref|) would pass an error of the rms's size: a
+# state carried across chunks scaled by 0.99 passes it.  At the main shape
+# y is also held elementwise, 5e-4 plus 1e-2 of |ref| (a bf16 ulp), and by
+# rms, under SSD_MAIN_RMS_LIMIT of rms(ref).  The final state is fp32 in
+# both versions: it is held at the fp32 limit of ssd_limit and by rms, under
+# SSD_STATE_RMS_LIMIT of rms(ref).  Each limit is about 5-10x the largest
+# reading of K3 on an NVIDIA H100 80GB HBM3 at 700 W, with the JAX test's
+# dt, a slowly decaying dt and block 0's own inputs: atol 5.2e-5 needed at
+# rtol 1e-2, rms ratios 3.3e-5 to 4.5e-5 for y and 4.2e-7 to 2.1e-6 for the
+# state (chip_smoke.py prints the readings).
+SSD_MAIN_TOLERANCE = dict(atol=5e-4, rtol=1e-2)
+SSD_MAIN_RMS_LIMIT = 2e-4
+SSD_STATE_RMS_LIMIT = 1e-5
+
+
+def ssd_limit(dtype: str) -> float:
+    """The JAX package's SSD limit on :func:`max_ratio`."""
+    return 5e-2 if dtype == "bfloat16" else 1e-4
+
+
+def max_ratio(got, want) -> float:
+    """The JAX package's SSD measure, max |got - want| / max |want|, of two
+    torch tensors or of two arrays (numpy, JAX)."""
+    if hasattr(got, "float"):                 # torch, on any device
+        got, want = got.float(), want.float()
+    else:
+        got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(abs(got - want).max() / (abs(want).max() + 1e-9))
+
+
 def tolerance(dtype: str) -> dict:
     return (dict(atol=5e-2, rtol=5e-2) if dtype == "bfloat16"
             else dict(atol=2e-5, rtol=2e-5))
@@ -48,3 +124,11 @@ def tolerance(dtype: str) -> dict:
 
 def case_id(c) -> str:
     return f"B{c[0]}Hq{c[1]}Hkv{c[2]}S{c[3]}D{c[4]}c{int(c[5])}w{c[6]}{c[7]}"
+
+
+def decode_case_id(c) -> str:
+    return f"B{c[0]}Hq{c[1]}Hkv{c[2]}S{c[3]}D{c[4]}i{c[5]}w{c[6]}{c[7]}"
+
+
+def ssd_case_id(c) -> str:
+    return f"b{c[0]}S{c[1]}H{c[2]}P{c[3]}N{c[4]}c{c[5]}{c[6]}"

@@ -37,3 +37,53 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
     return out.to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         index, *, window: Optional[int] = None
+                         ) -> torch.Tensor:
+    """One-token attention against a cache, fully materialised.
+
+    q: [B, Hq, D]; k, v: [B, Hkv, S, D]; ``index`` (an int or a 0-d
+    tensor) is the newest valid slot: slots past it, and with a window
+    slots at or before ``index - window``, are masked with -1e30.
+    Returns [B, Hq, D] in q's dtype.
+    """
+    B, Hq, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    k = k.repeat_interleave(group, dim=1)
+    v = v.repeat_interleave(group, dim=1)
+    s = torch.einsum("bhd,bhkd->bhk", q.float(), k.float()) * (D ** -0.5)
+    kp = torch.arange(S, device=q.device)
+    mask = kp <= index
+    if window is not None:
+        mask &= kp > index - window
+    s = torch.where(mask[None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhk,bhkd->bhd", p, v.float())
+    return out.to(q.dtype)
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor) -> tuple:
+    """Token-by-token linear recurrence (independent of the chunked form).
+
+    x: [b, S, H, P]; dt: [b, S, H]; A: [H]; B, C: [b, S, N].
+    h_t = h_{t-1} * exp(dt_t A) + dt_t x_t (x) B_t ;  y_t = h_t . C_t
+    Returns (y [b, S, H, P] in x's dtype, final state [b, H, P, N] in
+    fp32); the state is carried in fp32.
+    """
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    Af = A.float()
+    h = torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        dA = torch.exp(dtf[:, t] * Af[None, :])                   # [b, H]
+        h = (h * dA[..., None, None]
+             + torch.einsum("bhp,bn->bhpn", xf[:, t] * dtf[:, t, :, None],
+                            Bf[:, t]))
+        ys.append(torch.einsum("bhpn,bn->bhp", h, Cf[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype), h

@@ -1,37 +1,46 @@
-"""Block (pipeline-unit) definitions for the attention-only families.
+"""Block (pipeline-unit) definitions for the attention and Mamba2 families.
 
-Mirrors ``_sublayer_kinds``, ``init_block``, ``init_stacked_blocks`` and
-``block_forward`` of the JAX package's ``models/blocks.py``.  Every
-sublayer is pre-norm:  x += Attn(LN(x));  x += MLP(LN(x)).  Parameters of
-all blocks are stacked along a leading ``num_blocks`` axis (the JAX
-pytree's layout), so a pipeline stage runs blocks ``[lo, hi)`` by index.
+Mirrors the JAX package's ``models/blocks.py``: a *block* is the
+homogeneous super-layer the pipeline scheduler moves between stages --
+dense → one attention sublayer, ssm → one Mamba2 sublayer.  Every sublayer
+is pre-norm:  x += Mixer(LN(x));  x += MLP(LN(x)) (the ssm family has no
+MLP).  Blocks expose three modes:
 
-Mamba2 and MoE sublayers are not ported yet and raise.
+* ``block_forward``   — full sequence (serving / prefill compute)
+* ``block_prefill``   — full sequence + fills the decode cache
+* ``block_decode``    — one token + cache -> one token + cache
+
+Parameters and caches of all blocks are stacked along a leading
+``num_blocks`` axis (the JAX pytree's layout), so a pipeline stage runs
+blocks ``[lo, hi)`` by index.  Unlike the JAX versions, which return new
+caches, ``block_prefill`` and ``block_decode`` update the cache in place.
+
+MoE sublayers are not ported yet and raise.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Union
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba2 as mamba_lib
 from repro_torch.models.layers import init_mlp, init_rms_norm, mlp, rms_norm
 
 
 def _sublayer_kinds(cfg: ModelConfig):
     """[(mixer_kind, ffn_kind)] per sublayer of one block."""
-    if cfg.family == "ssm" or any(m != "attn" for m in cfg.layer_pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba2 sublayers are not ported yet "
-            "(ROADMAP.md Queue 1 item 8, Mamba2/Jamba)")
     if cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.name}: MoE sublayers are not ported yet "
             "(ROADMAP.md Queue 1 item 9)")
-    ffn = "dense" if cfg.d_ff > 0 else "none"
-    return [("attn", ffn)] * len(cfg.layer_pattern)
+    if cfg.family == "ssm" or cfg.d_ff <= 0:
+        ffn = "none"
+    else:
+        ffn = "dense"
+    return [(mixer, ffn) for mixer in cfg.layer_pattern]
 
 
 def init_stacked_blocks(gen: torch.Generator, cfg: ModelConfig,
@@ -39,10 +48,14 @@ def init_stacked_blocks(gen: torch.Generator, cfg: ModelConfig,
     """All blocks' parameters, each leaf stacked ``[num_blocks, ...]``."""
     lead = (cfg.num_blocks,)
     params = {}
-    for i, (_, ffn) in enumerate(_sublayer_kinds(cfg)):
-        sub = {"ln1": init_rms_norm(cfg.d_model, dtype, device, lead),
-               "mixer": attn_lib.init_attention(gen, cfg, dtype, device,
-                                                lead)}
+    for i, (mixer, ffn) in enumerate(_sublayer_kinds(cfg)):
+        sub = {"ln1": init_rms_norm(cfg.d_model, dtype, device, lead)}
+        if mixer == "attn":
+            sub["mixer"] = attn_lib.init_attention(gen, cfg, dtype, device,
+                                                   lead)
+        else:
+            sub["mixer"] = mamba_lib.init_mamba(gen, cfg, dtype, device,
+                                                lead)
         if ffn == "dense":
             sub["ln2"] = init_rms_norm(cfg.d_model, dtype, device, lead)
             sub["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device,
@@ -59,26 +72,115 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
 
 
 def block_params(stacked: Dict, i: int) -> Dict:
-    """Block ``i``'s parameters: views into the stacked leaves."""
+    """Block ``i``'s parameters (or cache): views into the stacked leaves."""
     return {k: block_params(v, i) if isinstance(v, dict) else v[i]
             for k, v in stacked.items()}
 
 
 def block_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-                  positions: torch.Tensor,
-                  attn_impl: str = "auto") -> torch.Tensor:
+                  positions: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """Full-sequence application of one block.
 
     The JAX version also returns summed MoE router statistics; with no MoE
     sublayer ported they are always zero, so only ``x`` is returned.
-    ``attn_impl`` is passed to :func:`attention_forward`.
+    ``impl`` is passed to the mixer's kernel (``ops.flash_attention`` or
+    ``ops.ssd_scan``).
     """
-    for i, (_, ffn) in enumerate(_sublayer_kinds(cfg)):
+    for i, (mixer, ffn) in enumerate(_sublayer_kinds(cfg)):
         sub = params[f"sub{i}"]
         h = rms_norm(x, sub["ln1"]["scale"], cfg.rms_eps)
-        x = x + attn_lib.attention_forward(sub["mixer"], cfg, h, positions,
-                                           impl=attn_impl)
+        if mixer == "attn":
+            x = x + attn_lib.attention_forward(sub["mixer"], cfg, h,
+                                               positions, impl=impl)
+        else:
+            x = x + mamba_lib.mamba_forward(sub["mixer"], cfg, h, impl=impl)
         if ffn == "dense":
             h = rms_norm(x, sub["ln2"]["scale"], cfg.rms_eps)
             x = x + mlp(sub["ffn"], h)
     return x
+
+
+# -- caches -------------------------------------------------------------------
+
+
+def init_block_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                     device="cuda", lead: tuple = ()) -> Dict:
+    """One block's decode cache (``lead`` prepends stacking axes)."""
+    cache = {}
+    for i, (mixer, _) in enumerate(_sublayer_kinds(cfg)):
+        if mixer == "attn":
+            cache[f"sub{i}"] = attn_lib.init_kv_cache(cfg, batch, max_len,
+                                                      dtype, device, lead)
+        else:
+            cache[f"sub{i}"] = mamba_lib.init_mamba_cache(cfg, batch, dtype,
+                                                          device, lead)
+    return cache
+
+
+def init_stacked_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                       device="cuda") -> Dict:
+    """All blocks' decode caches, each leaf stacked ``[num_blocks, ...]``."""
+    return init_block_cache(cfg, batch, max_len, dtype, device,
+                            (cfg.num_blocks,))
+
+
+def block_prefill(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                  positions: torch.Tensor, cache: Dict,
+                  impl: str = "auto") -> tuple:
+    """Full-sequence forward that also fills this block's decode cache (in
+    place).  Returns (x, cache)."""
+    for i, (mixer, ffn) in enumerate(_sublayer_kinds(cfg)):
+        sub = params[f"sub{i}"]
+        h = rms_norm(x, sub["ln1"]["scale"], cfg.rms_eps)
+        if mixer == "attn":
+            o, _ = attn_lib.attention_prefill(sub["mixer"], cfg, h, positions,
+                                              cache[f"sub{i}"], impl=impl)
+        else:
+            o, mc = mamba_prefill(sub["mixer"], cfg, h, impl=impl)
+            cache[f"sub{i}"]["conv"].copy_(mc["conv"])
+            cache[f"sub{i}"]["ssm"].copy_(mc["ssm"])
+        x = x + o
+        if ffn == "dense":
+            h = rms_norm(x, sub["ln2"]["scale"], cfg.rms_eps)
+            x = x + mlp(sub["ffn"], h)
+    return x, cache
+
+
+def block_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                 cache: Dict, index: Union[int, torch.Tensor],
+                 impl: str = "auto") -> tuple:
+    """One-token decode through one block (cache updated in place)."""
+    for i, (mixer, ffn) in enumerate(_sublayer_kinds(cfg)):
+        sub = params[f"sub{i}"]
+        h = rms_norm(x, sub["ln1"]["scale"], cfg.rms_eps)
+        if mixer == "attn":
+            o, _ = attn_lib.attention_decode(sub["mixer"], cfg, h,
+                                             cache[f"sub{i}"], index,
+                                             impl=impl)
+        else:
+            o, _ = mamba_lib.mamba_decode(sub["mixer"], cfg, h,
+                                          cache[f"sub{i}"])
+        x = x + o
+        if ffn == "dense":
+            h = rms_norm(x, sub["ln2"]["scale"], cfg.rms_eps)
+            x = x + mlp(sub["ffn"], h)
+    return x, cache
+
+
+# ---------------------------------------------------------------------------
+# Mamba prefill helper (forward + cache extraction)
+# ---------------------------------------------------------------------------
+
+
+def mamba_prefill(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                  impl: str = "auto") -> tuple:
+    """Like ``mamba_forward`` but also returns the decode cache: the SSD
+    scan's final state, and the last ``d_conv - 1`` pre-activation conv
+    inputs (left-padded with zeros when ``S < d_conv - 1``)."""
+    out, xBC_pre, state = mamba_lib._mixer(params, cfg, x, impl)
+    K, S = cfg.ssm.d_conv, x.shape[1]
+    if S >= K - 1:
+        conv = xBC_pre[:, S - (K - 1):]
+    else:
+        conv = torch.nn.functional.pad(xBC_pre, (0, 0, K - 1 - S, 0))
+    return out, {"conv": conv, "ssm": state}

@@ -1,9 +1,12 @@
 """Model assembly: embeddings + stacked blocks + head.
 
-Mirrors ``Model.init_params`` and ``Model.forward`` of the JAX package's
-``models/model.py``.  Parameters are a nested dict with the JAX pytree's
-layout: ``{"embed": {"table"}, "blocks": {...stacked...},
-"final_norm": {"scale"}, "head": {"w"}}``.
+Mirrors ``Model.init_params``, ``forward``, ``init_cache``, ``prefill``
+and ``decode_step`` of the JAX package's ``models/model.py``.  Parameters
+are a nested dict with the JAX pytree's layout: ``{"embed": {"table"},
+"blocks": {...stacked...}, "final_norm": {"scale"}, "head": {"w"}}``; the
+cache is a nested dict stacked ``[num_blocks, ...]`` the same way.
+Unlike the JAX versions, ``prefill`` and ``decode_step`` update the cache
+in place (and return it).
 """
 from __future__ import annotations
 
@@ -31,7 +34,9 @@ class Model:
     def init_params(self, seed: int = 0, dtype=torch.float32,
                     device: Union[str, torch.device] = "cuda") -> Dict:
         """Random parameters drawn on ``device`` from a generator seeded
-        with ``seed`` (the JAX package's distributions and scales)."""
+        with ``seed`` (the JAX package's distributions and scales; the
+        Mamba2 leaves that JAX keeps in fp32 stay fp32 whatever
+        ``dtype``)."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         cfg = self.cfg
@@ -54,3 +59,43 @@ class Model:
                                   self.cfg, x, positions)
         x = rms_norm(x, params["final_norm"]["scale"], self.cfg.rms_eps)
         return unembed(params["head"], x)
+
+    # -- decode path -----------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
+                   device: Union[str, torch.device] = "cuda") -> Dict:
+        """Zeroed decode cache: KV slots for attention sublayers, conv
+        window and SSM state for Mamba2 sublayers."""
+        return blk.init_stacked_cache(self.cfg, batch, max_len, dtype,
+                                      resolve_device(device))
+
+    def prefill(self, params: Dict, tokens: torch.Tensor, cache: Dict,
+                impl: str = "auto") -> tuple:
+        """tokens [B, S]: a full-sequence pass filling ``cache`` (from
+        :meth:`init_cache`, in place); returns (last-position logits
+        [B, 1, vocab], cache).  ``impl`` picks the blocks' kernels (K1 for
+        attention, K3 for the SSD scan)."""
+        x = embed(params["embed"], tokens)
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        for i in range(self.cfg.num_blocks):
+            x, _ = blk.block_prefill(blk.block_params(params["blocks"], i),
+                                     self.cfg, x, positions,
+                                     blk.block_params(cache, i), impl)
+        x = rms_norm(x[:, -1:], params["final_norm"]["scale"],
+                     self.cfg.rms_eps)
+        return unembed(params["head"], x), cache
+
+    def decode_step(self, params: Dict, tokens: torch.Tensor, cache: Dict,
+                    index: Union[int, torch.Tensor],
+                    impl: str = "auto") -> tuple:
+        """tokens [B, 1] at position ``index`` (an int or a 0-d int32
+        tensor) -> (logits [B, 1, vocab], cache updated in place).
+        ``impl`` picks the attention (K2)."""
+        x = embed(params["embed"], tokens)
+        index = torch.as_tensor(index, dtype=torch.int32, device=x.device)
+        for i in range(self.cfg.num_blocks):
+            x, _ = blk.block_decode(blk.block_params(params["blocks"], i),
+                                    self.cfg, x, blk.block_params(cache, i),
+                                    index, impl)
+        x = rms_norm(x, params["final_norm"]["scale"], self.cfg.rms_eps)
+        return unembed(params["head"], x), cache

@@ -15,16 +15,37 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
+    DECODE_CASES,
+    DECODE_MAIN_CASE,
+    DECODE_MAIN_RMS_LIMIT,
+    DECODE_MAIN_TOLERANCE,
+    DECODE_RAGGED_CASES,
     FLASH_CASES,
     MAIN_CASES,
     MAIN_RMS_LIMIT,
     MAIN_TOLERANCE,
     RAGGED_CASES,
+    SSD_CASES,
+    SSD_MAIN_CASE,
+    SSD_MAIN_RMS_LIMIT,
+    SSD_MAIN_TOLERANCE,
+    SSD_RAGGED_CASES,
+    SSD_STATE_RMS_LIMIT,
     case_id,
+    decode_case_id,
+    max_ratio,
+    ssd_case_id,
+    ssd_limit,
     tolerance,
 )
+from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.kernels.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    decode_attention_ref,
+    flash_attention_ref,
+    ssd_scan_ref,
+)
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import blocks as blk  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
@@ -39,6 +60,17 @@ def _inputs(shapes, dtype: str, seed: int = 0):
 def _to_card(tree: dict) -> dict:
     return {k: _to_card(v) if isinstance(v, dict) else v.cuda()
             for k, v in tree.items()}
+
+
+def _rms(t) -> float:
+    return float(t.float().square().mean().sqrt())
+
+
+def _assert_close_by_rms(got, want, tol: dict, rms_limit: float) -> None:
+    """|got - want| <= atol + rtol |want| everywhere, and rms(got - want)
+    <= rms_limit rms(want)."""
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert _rms(got.float() - want.float()) <= rms_limit * _rms(want)
 
 
 @pytest.fixture
@@ -70,11 +102,9 @@ def test_kernel_matches_plain_version_at_main_path_shape(card, case):
     B, Hq, Hkv, S, D, causal, window, dtype = case
     q, k, v = _inputs([(B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D)], dtype)
     got = ops.flash_attention(q, k, v, causal=causal, window=window,
-                              impl="cuda").float()
-    want = flash_attention_ref(q, k, v, causal=causal, window=window).float()
-    torch.testing.assert_close(got, want, **MAIN_TOLERANCE)
-    rms_err = float((got - want).square().mean().sqrt())
-    assert rms_err <= MAIN_RMS_LIMIT * float(want.square().mean().sqrt())
+                              impl="cuda")
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    _assert_close_by_rms(got, want, MAIN_TOLERANCE, MAIN_RMS_LIMIT)
 
 
 @pytest.mark.cuda
@@ -126,5 +156,130 @@ def test_serving_runs_every_block_through_kernel(card):
         pos = torch.arange(64, device="cuda").expand(1, 64)
         torch.testing.assert_close(
             blk.block_forward(bp, cfg, x, pos),
-            blk.block_forward(bp, cfg, x, pos, attn_impl="ref"),
+            blk.block_forward(bp, cfg, x, pos, impl="ref"),
             atol=1e-4, rtol=1e-4)
+
+
+def _ssd_inputs(b, S, H, P, N, dtype, seed=0, slow=False):
+    """x, B, C normal; A = -exp(normal / 2); dt = softplus(normal) as the
+    JAX kernel test draws it, or with ``slow`` log-uniform in [1e-3, 1e-1]
+    (the range Mamba2 initialises dt to), where the state decays slowly and
+    carries across chunks."""
+    rng = np.random.default_rng(seed)
+    x, B, C = (rng.standard_normal(s).astype(np.float32)
+               for s in ((b, S, H, P), (b, S, N), (b, S, N)))
+    dt = (np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (b, S, H))) if slow
+          else np.logaddexp(rng.standard_normal((b, S, H)), 0))
+    A = -np.exp(rng.standard_normal(H) * 0.5)
+    return [torch.from_numpy(a.astype(np.float32)).to(
+        device="cuda", dtype=getattr(torch, dtype)) for a in (x, dt, A, B, C)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES + SSD_RAGGED_CASES,
+                         ids=ssd_case_id)
+def test_ssd_kernel_matches_plain_version(card, case):
+    b, S, H, P, N, chunk, dtype = case
+    ins = _ssd_inputs(b, S, H, P, N, dtype)
+    n = ssd_scan.launches
+    y, state = ops.ssd_scan(*ins, chunk=chunk, impl="cuda")
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == n + 1
+    assert y.dtype == ins[0].dtype and state.dtype == torch.float32
+    y_ref, s_ref = ssd_scan_ref(*ins)
+    assert max_ratio(y, y_ref) < ssd_limit(dtype)
+    assert max_ratio(state, s_ref) < ssd_limit("float32")   # fp32 in both
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slow", [False, True], ids=["jax_dt", "slow_decay"])
+def test_ssd_kernel_matches_plain_version_at_main_path_shape(card, slow):
+    b, S, H, P, N, chunk, dtype = SSD_MAIN_CASE
+    ins = _ssd_inputs(b, S, H, P, N, dtype, slow=slow)
+    y, state = ops.ssd_scan(*ins, chunk=chunk, impl="cuda")
+    y_ref, s_ref = ssd_scan_ref(*ins)
+    _assert_close_by_rms(y, y_ref, SSD_MAIN_TOLERANCE, SSD_MAIN_RMS_LIMIT)
+    assert max_ratio(state, s_ref) < ssd_limit("float32")
+    assert _rms(state - s_ref) <= SSD_STATE_RMS_LIMIT * _rms(s_ref)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_depends_on_chunk_only_through_rounding(card):
+    ins = _ssd_inputs(1, 300, 4, 64, 128, "float32", seed=1)
+    y1, s1 = ops.ssd_scan(*ins, chunk=256, impl="cuda")
+    y2, s2 = ops.ssd_scan(*ins, chunk=37, impl="cuda")
+    assert max_ratio(y1, y2) < 1e-5 and max_ratio(s1, s2) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_CASES + DECODE_RAGGED_CASES
+                         + [DECODE_MAIN_CASE], ids=decode_case_id)
+def test_decode_kernel_matches_plain_version(card, case):
+    B, Hq, Hkv, S, D, idx, window, dtype = case
+    q, k, v = _inputs([(B, Hq, D), (B, Hkv, S, D), (B, Hkv, S, D)], dtype)
+    n = decode_attention.launches
+    index = torch.tensor(idx, dtype=torch.int32, device="cuda")
+    got = ops.decode_attention(q, k, v, index, window=window, impl="cuda")
+    torch.cuda.synchronize()
+    assert decode_attention.launches == n + 1
+    want = decode_attention_ref(q, k, v, idx, window=window)
+    if case == DECODE_MAIN_CASE:
+        _assert_close_by_rms(got, want, DECODE_MAIN_TOLERANCE,
+                             DECODE_MAIN_RMS_LIMIT)
+    else:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **tolerance(dtype))
+
+
+@pytest.mark.cuda
+def test_decode_kernel_ignores_stale_slots_and_reads_cache_in_place(card):
+    B, Hq, Hkv, S, D = 1, 32, 8, 512, 128
+    q, cache_k, cache_v = _inputs([(B, Hq, D), (B, S, Hkv, D),
+                                   (B, S, Hkv, D)], "bfloat16", seed=2)
+    k, v = cache_k.transpose(1, 2), cache_v.transpose(1, 2)
+    out1 = ops.decode_attention(q, k, v, 300, impl="cuda")
+    cache_k[:, 301:] = 99.0
+    cache_v[:, 301:] = -99.0
+    out2 = ops.decode_attention(q, k, v, 300, impl="cuda")
+    torch.testing.assert_close(out1, out2, atol=0.0, rtol=0.0)
+    torch.testing.assert_close(
+        out1.float(), decode_attention_ref(q, k.contiguous(), v.contiguous(),
+                                           300).float(),
+        **tolerance("bfloat16"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-370m"])
+def test_prefill_decode_on_card_match_cpu(card, arch):
+    cfg = get_smoke_config(arch)
+    model = Model(cfg)
+    params = model.init_params(0, device="cpu")
+    toks = torch.as_tensor(
+        np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 66)))
+    outs = []
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else _to_card(params)
+        cache = model.init_cache(2, 72, torch.float32, device=dev)
+        t = toks.to(dev)
+        with torch.inference_mode():
+            lp, cache = model.prefill(p, tokens=t[:, :64], cache=cache)
+            lg, cache = model.decode_step(p, t[:, 64:65], cache, 64)
+            lg2, _ = model.decode_step(p, t[:, 65:66], cache, 65)
+        outs.append([o.cpu() for o in (lp, lg, lg2)])
+    for want, got in zip(*outs):
+        torch.testing.assert_close(got, want, atol=2e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_mamba_serving_runs_every_block_through_ssd_kernel(card):
+    cfg = get_smoke_config("mamba2-370m")
+    params = Model(cfg).init_params(0, device="cuda")
+    eng = ServingEngine(cfg, params, num_eps=2, device="cuda")
+    eng.executor.warmup(1, 64)
+    rng = np.random.default_rng(3)
+    queries = [torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 64)),
+                               device="cuda") for _ in range(4)]
+    ssd_scan.launches = 0
+    trace = eng.serve(queries, lambda q: [1.0, 1.0])
+    assert ssd_scan.launches == cfg.num_layers * len(queries)
+    assert all(sum(c) == cfg.num_blocks for c in trace.configs)

@@ -1,5 +1,6 @@
-"""The port's flash attention (plain version on the CPU) against the JAX
-package's Pallas kernel in interpret mode and its jnp oracle."""
+"""The port's kernels (plain versions on the CPU) against the JAX
+package's Pallas kernels in interpret mode and its jnp oracles: flash
+attention (K1), decode attention (K2) and the SSD scan (K3)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -9,21 +10,44 @@ import numpy as np  # noqa: E402
 
 from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
+from repro.models import mamba2 as jax_mamba  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention,
+    splits,
+)
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
+from repro_torch.models import mamba2 as port_mamba  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
+    DECODE_CASES,
+    DECODE_MAIN_CASE,
+    DECODE_MAIN_RMS_LIMIT,
+    DECODE_MAIN_TOLERANCE,
+    DECODE_RAGGED_CASES,
     FLASH_CASES,
     RAGGED_CASES,
+    SSD_CASES,
+    SSD_MAIN_CASE,
+    SSD_MAIN_RMS_LIMIT,
+    SSD_MAIN_TOLERANCE,
+    SSD_RAGGED_CASES,
     case_id,
+    decode_case_id,
+    max_ratio,
+    ssd_case_id,
+    ssd_limit,
     tolerance,
 )
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
-# The slow interpret-mode comparison runs on these FLASH_CASES; the rest use
-# the ref.
+# The slow interpret-mode comparison runs on these cases; the rest use the
+# ref.
 INTERPRET = {1, 3, 5, 6}
+DECODE_INTERPRET = {2, 3}
+SSD_INTERPRET = {1, 3}
 
 
 def _inputs(B, Hq, Hkv, S, D, dtype, seed=0):
@@ -108,3 +132,227 @@ def test_wrapper_rejects_bad_inputs(bad):
         q = q[:, :3]
     with pytest.raises(ValueError):
         flash_attention(q, k, v, window=0 if bad == "window" else None)
+
+
+# ---------------------------------------------------------------------------
+# decode attention (K2)
+# ---------------------------------------------------------------------------
+
+
+def _decode_inputs(B, Hq, Hkv, S, D, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in ((B, Hq, D), (B, Hkv, S, D), (B, Hkv, S, D))]
+    jdt, tdt = DTYPES[dtype]
+    return ([jnp.asarray(a).astype(jdt) for a in arrs],
+            [torch.from_numpy(a).to(tdt) for a in arrs])
+
+
+@pytest.mark.parametrize("case", range(len(DECODE_CASES)),
+                         ids=[decode_case_id(c) for c in DECODE_CASES])
+def test_decode_attention_matches_jax(case):
+    B, Hq, Hkv, S, D, idx, window, dtype = DECODE_CASES[case]
+    (jq, jk, jv), (q, k, v) = _decode_inputs(B, Hq, Hkv, S, D, dtype)
+    out = ops.decode_attention(q, k, v, idx, window=window)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    got = out.float().numpy()
+    want = jax_ref.decode_attention_ref(jq, jk, jv, idx, window=window)
+    np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                               **tolerance(dtype))
+    if case in DECODE_INTERPRET:
+        pallas = jax_ops.decode_attention(jq, jk, jv, jnp.int32(idx),
+                                          window=window, impl="interpret",
+                                          block_k=128)
+        np.testing.assert_allclose(got, np.asarray(pallas, np.float32),
+                                   **tolerance(dtype))
+
+
+@pytest.mark.parametrize("case", DECODE_RAGGED_CASES + [DECODE_MAIN_CASE],
+                         ids=decode_case_id)
+def test_decode_attention_ragged_and_main_shapes(case):
+    B, Hq, Hkv, S, D, idx, window, dtype = case
+    (jq, jk, jv), (q, k, v) = _decode_inputs(B, Hq, Hkv, S, D, dtype, seed=1)
+    got = ops.decode_attention(q, k, v, idx, window=window).float().numpy()
+    want = np.asarray(jax_ref.decode_attention_ref(jq, jk, jv, idx,
+                                                   window=window), np.float32)
+    main = case == DECODE_MAIN_CASE
+    np.testing.assert_allclose(
+        got, want, **(DECODE_MAIN_TOLERANCE if main else tolerance(dtype)))
+    if main:
+        rms_err = np.sqrt(np.mean(np.square(got - want)))
+        assert rms_err <= DECODE_MAIN_RMS_LIMIT * np.sqrt(
+            np.mean(np.square(want)))
+
+
+def test_decode_ignores_stale_cache_beyond_index():
+    """Slots past `index` must not leak into the output."""
+    (_, _, _), (q, k, v) = _decode_inputs(1, 4, 2, 256, 64, "float32")
+    out1 = ops.decode_attention(q, k, v, 100)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, 101:] = 99.0
+    v2[:, :, 101:] = -99.0
+    out2 = ops.decode_attention(q, k2, v2, 100)
+    torch.testing.assert_close(out1, out2, atol=1e-6, rtol=0.0)
+
+
+def test_decode_reads_model_cache_layout_and_tensor_index():
+    """The model's [B, S, Hkv, D] cache read through strides, and a 0-d
+    int32 index, give what a contiguous cache and an int give."""
+    (_, _, _), (q, k, v) = _decode_inputs(2, 8, 2, 96, 64, "float32", seed=2)
+    ks, vs = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (k, v))
+    assert not ks.is_contiguous()
+    idx = torch.tensor(70, dtype=torch.int32)
+    torch.testing.assert_close(ops.decode_attention(q, ks, vs, idx, window=40),
+                               ops.decode_attention(q, k, v, 70, window=40),
+                               atol=0.0, rtol=0.0)
+
+
+def test_decode_splits_cover_the_cache():
+    for B, Hkv, S in ((1, 8, 2048), (2, 2, 512), (1, 2, 200), (4, 16, 33),
+                      (1, 1, 1)):
+        split_len, nsplit = splits(B, Hkv, S, 132)
+        assert split_len % 32 == 0 and split_len * nsplit >= S
+        assert split_len * (nsplit - 1) < S
+
+
+# ---------------------------------------------------------------------------
+# SSD scan (K3)
+# ---------------------------------------------------------------------------
+
+
+def _ssd_inputs(b, S, H, P, N, dtype, seed=0):
+    """x, dt (softplus), A (negative), B, C as numpy fp32, then as the JAX
+    and port arrays in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, S, H, P)).astype(np.float32)
+    dt = np.logaddexp(rng.standard_normal((b, S, H)), 0).astype(np.float32)
+    A = -np.exp(rng.standard_normal(H) * 0.5).astype(np.float32)
+    B = rng.standard_normal((b, S, N)).astype(np.float32)
+    C = rng.standard_normal((b, S, N)).astype(np.float32)
+    arrs = (x, dt, A, B, C)
+    jdt, tdt = DTYPES[dtype]
+    return ([jnp.asarray(a).astype(jdt) for a in arrs],
+            [torch.from_numpy(a).to(tdt) for a in arrs], arrs)
+
+
+@pytest.mark.parametrize("case", range(len(SSD_CASES)),
+                         ids=[ssd_case_id(c) for c in SSD_CASES])
+def test_ssd_scan_matches_jax(case):
+    b, S, H, P, N, chunk, dtype = SSD_CASES[case]
+    jin, tin, raw = _ssd_inputs(b, S, H, P, N, dtype)
+    y, state = ops.ssd_scan(*tin, chunk=chunk)
+    assert y.dtype == tin[0].dtype and y.shape == tin[0].shape
+    assert state.dtype == torch.float32 and state.shape == (b, H, P, N)
+    # The JAX oracle takes A in fp32, as the JAX test hands it over.
+    want = jax_ref.ssd_scan_ref(jin[0], jin[1], jnp.asarray(raw[2]), *jin[3:])
+    assert max_ratio(y.float().numpy(), want) < ssd_limit(dtype)
+    if case in SSD_INTERPRET:
+        # The Pallas kernel's head block (a layout knob K3 does not have)
+        # as the JAX package's cases give it for these shapes.
+        pallas = jax_ops.ssd_scan(*jin, chunk=chunk, block_h=min(H, 8),
+                                  impl="interpret")
+        assert max_ratio(y.float().numpy(), pallas) < ssd_limit(dtype)
+
+
+@pytest.mark.parametrize("case", SSD_RAGGED_CASES, ids=ssd_case_id)
+def test_ssd_scan_ragged_sequence(case):
+    b, S, H, P, N, chunk, dtype = case
+    jin, tin, raw = _ssd_inputs(b, S, H, P, N, dtype, seed=1)
+    y, _ = ssd_scan(*tin, chunk=chunk)
+    want = jax_ref.ssd_scan_ref(jin[0], jin[1], jnp.asarray(raw[2]), *jin[3:])
+    assert max_ratio(y.float().numpy(), want) < ssd_limit(dtype)
+
+
+def test_ssd_final_state_matches_model_chunked_form():
+    """y and the final state == models.mamba2.ssd_chunked's (the tolerance
+    of the JAX kernel test against the chunked form)."""
+    b, S, H, P, N = 2, 256, 8, 64, 32
+    jin, tin, _ = _ssd_inputs(b, S, H, P, N, "float32", seed=3)
+    y, state = ops.ssd_scan(*tin, chunk=64)
+    y_model, s_model = jax_mamba.ssd_chunked(*jin, chunk=64)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_model),
+                               atol=5e-4, rtol=1e-4)
+    np.testing.assert_allclose(state.numpy(), np.asarray(s_model),
+                               atol=5e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("kernel", ["decode_attention", "ssd_scan"])
+def test_cuda_impl_on_cpu_raises_for_every_kernel(kernel):
+    if kernel == "decode_attention":
+        (_, _, _), args = _decode_inputs(1, 2, 2, 64, 64, "float32")
+        args = (*args, 10)
+        wrapper, call = decode_attention, ops.decode_attention
+    else:
+        _, args, _ = _ssd_inputs(1, 32, 2, 8, 8, "float32")
+        wrapper, call = ssd_scan, ops.ssd_scan
+    launches = (decode_attention.launches, ssd_scan.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        call(*args, impl="cuda")
+    with pytest.raises(ValueError, match="impl"):
+        call(*args, impl="pallas")
+    wrapper(*args)                       # the plain version: no launch
+    assert (decode_attention.launches, ssd_scan.launches) == launches
+
+
+@pytest.mark.parametrize("bad", ["q", "kv", "heads", "window"])
+def test_decode_wrapper_rejects_bad_inputs(bad):
+    (_, _, _), (q, k, v) = _decode_inputs(1, 4, 2, 64, 64, "float32")
+    if bad == "q":
+        q = q[:, :, None]
+    elif bad == "kv":
+        v = v[:, :, :32]
+    elif bad == "heads":
+        q = q[:, :3]
+    with pytest.raises(ValueError):
+        decode_attention(q, k, v, 10, window=0 if bad == "window" else None)
+
+
+@pytest.mark.parametrize("bad", ["dt", "A", "C", "chunk"])
+def test_ssd_wrapper_rejects_bad_inputs(bad):
+    _, (x, dt, A, B, C), _ = _ssd_inputs(1, 32, 2, 8, 8, "float32")
+    if bad == "dt":
+        dt = dt[:, :16]
+    elif bad == "A":
+        A = A[:1]
+    elif bad == "C":
+        C = C[..., :4]
+    with pytest.raises(ValueError):
+        ssd_scan(x, dt, A, B, C, chunk=0 if bad == "chunk" else 16)
+
+
+@pytest.mark.parametrize("slow", [False, True], ids=["jax_dt", "slow_decay"])
+def test_ssd_main_limits_catch_a_wrong_carry(slow):
+    """At the main path's shape the model's chunked form, in fp32 with y
+    rounded to bf16, passes SSD_MAIN_TOLERANCE and SSD_MAIN_RMS_LIMIT
+    against the plain scan; with the state carried across chunks scaled by
+    0.99 it fails them, though it passes the JAX bf16 limit."""
+    b, S, H, P, N, chunk, dtype = SSD_MAIN_CASE
+    _, tin, _ = _ssd_inputs(b, S, H, P, N, dtype, seed=4)
+    if slow:   # dt log-uniform in [1e-3, 1e-1]: the state carries far
+        rng = np.random.default_rng(5)
+        tin[1] = torch.from_numpy(np.exp(rng.uniform(
+            np.log(1e-3), np.log(1e-1), (b, S, H))).astype(np.float32)).to(
+                tin[1].dtype)
+    want, _ = ssd_scan(*tin, chunk=chunk)
+    x, dt, A, B, C = (t.float() for t in tin)
+
+    def chunked(carry: float):
+        state, ys = None, []
+        for c in range(0, S, chunk):
+            sl = slice(c, c + chunk)
+            y, state = port_mamba.ssd_chunked(
+                x[:, sl], dt[:, sl], A, B[:, sl], C[:, sl], chunk=chunk,
+                init_state=None if state is None else carry * state)
+            ys.append(y.to(want.dtype))
+        return torch.cat(ys, dim=1).float()
+
+    def passes(got) -> bool:
+        ref, tol = want.float(), SSD_MAIN_TOLERANCE
+        d = got - ref
+        return (bool((d.abs() <= tol["atol"] + tol["rtol"] * ref.abs()).all())
+                and float(d.square().mean().sqrt())
+                <= SSD_MAIN_RMS_LIMIT * float(ref.square().mean().sqrt()))
+
+    assert passes(chunked(1.0))
+    wrong = chunked(0.99)
+    assert max_ratio(wrong, want) < ssd_limit(dtype) and not passes(wrong)

@@ -14,7 +14,9 @@ from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
 from repro.models import Model as JaxModel  # noqa: E402
 from repro.models import attention as jax_attn  # noqa: E402
+from repro.models import blocks as jax_blk  # noqa: E402
 from repro.models import layers as jax_layers  # noqa: E402
+from repro.models import mamba2 as jax_mamba  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -22,10 +24,13 @@ from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import blocks as blk  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
+from repro_torch.models import mamba2 as mamba  # noqa: E402
 
 # tests/test_pipeline.py's tolerance for fp32 logits.
 TOL = dict(atol=1e-4, rtol=1e-4)
-ARCHS = ["qwen3-4b", "qwen3-8b", "qwen3-32b", "qwen2-0.5b"]
+ARCHS = ["qwen3-4b", "qwen3-8b", "qwen3-32b", "qwen2-0.5b", "mamba2-370m"]
+# tests/test_models_smoke.py's tolerance for prefill / decode logits.
+DECODE_TOL = dict(atol=2e-3, rtol=1e-3)
 
 
 def _np(x):
@@ -44,9 +49,11 @@ def test_configs_are_copies(arch):
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
         assert port.num_blocks == ref.num_blocks
         assert port.param_count() == ref.param_count()
+        assert port.block_has_attn() == ref.block_has_attn()
+        assert port.block_has_mamba() == ref.block_has_mamba()
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "mixtral-8x22b",
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mixtral-8x22b",
                                   "hubert-xlarge"])
 def test_unported_arch_names_its_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -120,7 +127,8 @@ def test_port_attention_matches_flash_attention_jnp(causal, window):
 
 @pytest.mark.parametrize("arch,layers_", [("qwen3-4b", None),
                                           ("qwen3-8b", 6),
-                                          ("qwen2-0.5b", None)])
+                                          ("qwen2-0.5b", None),
+                                          ("mamba2-370m", None)])
 def test_model_forward_matches_jax(arch, layers_):
     cfg = jax_smoke(arch)
     if layers_:
@@ -140,7 +148,7 @@ def test_model_forward_matches_jax(arch, layers_):
     np.testing.assert_allclose(got_e.numpy(), _np(want), **TOL)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "qwen2-0.5b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "qwen2-0.5b", "mamba2-370m"])
 def test_init_params_mirror_jax_tree(arch):
     """Same nested layout, shapes and init scales as the JAX init."""
     cfg = jax_smoke(arch)
@@ -197,7 +205,7 @@ def test_block_forward_attn_impl_ref_equals_auto_on_cpu():
     pos = torch.arange(20).expand(1, 20)
     torch.testing.assert_close(
         blk.block_forward(bp, cfg, x, pos),
-        blk.block_forward(bp, cfg, x, pos, attn_impl="ref"),
+        blk.block_forward(bp, cfg, x, pos, impl="ref"),
         atol=0.0, rtol=0.0)
 
 
@@ -208,3 +216,164 @@ def test_entry_points_refuse_missing_cuda():
         Model(get_smoke_config("qwen3-4b")).init_params(0)
     with pytest.raises(RuntimeError, match="cuda"):
         params_from_jax({"w": np.zeros(2, np.float32)})
+
+
+# ---------------------------------------------------------------------------
+# Mamba2
+# ---------------------------------------------------------------------------
+
+
+def _mamba_setup(seed=0):
+    cfg = jax_smoke("mamba2-370m")
+    jp, _ = _jax_params(cfg, seed)
+    one = jax.tree.map(lambda a: a[0], jp["blocks"]["sub0"]["mixer"])
+    port = params_from_jax(jax.tree.map(np.asarray, one), device="cpu")
+    return cfg, one, port
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+@pytest.mark.parametrize("fn", ["segsum", "ssd_chunked", "ssd_step",
+                                "causal_conv", "mamba_forward",
+                                "mamba_decode"])
+def test_mamba_function_matches_jax(fn):
+    cfg, jparams, params = _mamba_setup()
+    s = cfg.ssm
+    din, N = s.d_inner(cfg.d_model), s.d_state
+    H, P = s.num_heads(cfg.d_model), s.head_dim
+    rng = np.random.default_rng(7)
+    r = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa
+    if fn == "segsum":
+        x = r(3, 16) * 0.1
+        got, want = mamba.segsum(_t(x)), jax_mamba.segsum(jnp.asarray(x))
+        np.testing.assert_array_equal(np.isinf(got.numpy()),
+                                      np.isinf(np.asarray(want)))
+        got, want = torch.exp(got), jnp.exp(want)
+    elif fn == "ssd_chunked":
+        x, B, C, s0 = r(2, 64, H, P), r(2, 64, N), r(2, 64, N), r(2, H, P, N)
+        dt = np.logaddexp(r(2, 64, H), 0)
+        A = -np.exp(r(H) * 0.5)
+        got = mamba.ssd_chunked(*map(_t, (x, dt, A, B, C)), chunk=16,
+                                init_state=_t(s0))
+        want = jax_mamba.ssd_chunked(*map(jnp.asarray, (x, dt, A, B, C)),
+                                     chunk=16, init_state=jnp.asarray(s0))
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                                   **TOL)
+        got, want = got[0], want[0]
+    elif fn == "ssd_step":
+        x, dt, B, C, st = r(2, H, P), r(2, H) ** 2, r(2, N), r(2, N), \
+            r(2, H, P, N)
+        A = -np.exp(r(H))
+        got = mamba.ssd_step(*map(_t, (x, dt, A, B, C, st)))
+        want = jax_mamba.ssd_step(*map(jnp.asarray, (x, dt, A, B, C, st)))
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                                   **TOL)
+        got, want = got[0], want[0]
+    elif fn == "causal_conv":
+        xbc, init = r(2, 12, din + 2 * N), r(2, s.d_conv - 1, din + 2 * N)
+        w, b = jparams["conv_w"], r(din + 2 * N)
+        for ini in (None, init):
+            got = mamba._causal_conv(_t(xbc), _t(w), _t(b),
+                                     None if ini is None else _t(ini))
+            want = jax_mamba._causal_conv(jnp.asarray(xbc), w, jnp.asarray(b),
+                                          None if ini is None
+                                          else jnp.asarray(ini))
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    elif fn == "mamba_forward":
+        x = r(2, 48, cfg.d_model)
+        got = mamba.mamba_forward(params, get_smoke_config("mamba2-370m"),
+                                  _t(x))
+        want = jax_mamba.mamba_forward(jparams, cfg, jnp.asarray(x))
+    else:
+        x = r(2, 1, cfg.d_model)
+        cache = {"conv": r(2, s.d_conv - 1, din + 2 * N),
+                 "ssm": r(2, H, P, N) * 0.1}
+        got, new = mamba.mamba_decode(
+            params, get_smoke_config("mamba2-370m"), _t(x),
+            {k: _t(v) for k, v in cache.items()})
+        want, jnew = jax_mamba.mamba_decode(
+            jparams, cfg, jnp.asarray(x),
+            {k: jnp.asarray(v) for k, v in cache.items()})
+        for k in ("conv", "ssm"):
+            np.testing.assert_allclose(new[k].numpy(), np.asarray(jnew[k]),
+                                       **TOL)
+    np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
+
+
+@pytest.mark.parametrize("S", [40, 2])
+def test_mamba_prefill_cache_matches_jax(S):
+    """The conv cache (zero-padded when S < d_conv - 1) and the final SSM
+    state that prefill hands to decode."""
+    cfg, jparams, params = _mamba_setup(seed=2)
+    x = np.random.default_rng(8).standard_normal(
+        (2, S, cfg.d_model)).astype(np.float32)
+    got, cache = blk.mamba_prefill(params, get_smoke_config("mamba2-370m"),
+                                   _t(x))
+    want, jcache = jax_blk.mamba_prefill(jparams, cfg, jnp.asarray(x))
+    np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
+    for k in ("conv", "ssm"):
+        assert tuple(cache[k].shape) == jcache[k].shape
+        np.testing.assert_allclose(cache[k].numpy(), _np(jcache[k]), **TOL)
+
+
+@pytest.mark.parametrize("arch,window", [("qwen3-4b", None),
+                                         ("qwen2-0.5b", None),
+                                         ("mamba2-370m", None),
+                                         ("qwen3-4b", 24)])
+def test_prefill_decode_match_jax_and_forward(arch, window):
+    """Prefill + two decode steps against the JAX package's prefill and
+    decode_step and against the full forward (tests/test_models_smoke.py's
+    check and tolerance).  Every call gets a cache of its own: the port
+    updates caches in place."""
+    B, S = 2, 64
+    cfg = dataclasses.replace(jax_smoke(arch), sliding_window=window)
+    port_cfg = dataclasses.replace(get_smoke_config(arch),
+                                   sliding_window=window)
+    model = JaxModel(cfg)
+    jp, np_params = _jax_params(cfg, seed=1)
+    toks = np.random.default_rng(9).integers(0, cfg.vocab_size, (B, S + 2))
+    full, _ = model.forward(jp, tokens=jnp.asarray(toks))
+    jcache = model.init_cache(B, S + 8, jnp.float32)
+    jlp, jcache = model.prefill(jp, tokens=jnp.asarray(toks[:, :S]),
+                                cache=jcache)
+    jlg, _ = model.decode_step(jp, jnp.asarray(toks[:, S:S + 1]), jcache,
+                               jnp.array(S, jnp.int32))
+
+    port = Model(port_cfg)
+    params = params_from_jax(np_params, device="cpu")
+    cache = port.init_cache(B, S + 8, torch.float32, device="cpu")
+    t = torch.from_numpy(toks)
+    lp, cache = port.prefill(params, tokens=t[:, :S], cache=cache)
+    assert tuple(lp.shape) == (B, 1, cfg.vocab_size)
+    np.testing.assert_allclose(lp.numpy(), _np(jlp), **DECODE_TOL)
+    np.testing.assert_allclose(lp[:, 0].numpy(), _np(full[:, S - 1]),
+                               **DECODE_TOL)
+    for step in range(2):
+        lg, cache = port.decode_step(params, t[:, S + step:S + step + 1],
+                                     cache, S + step)
+        np.testing.assert_allclose(lg[:, 0].numpy(), _np(full[:, S + step]),
+                                   **DECODE_TOL)
+        if step == 0:
+            np.testing.assert_allclose(lg.numpy(), _np(jlg), **DECODE_TOL)
+
+
+def test_bridge_and_init_keep_ssm_leaves_fp32():
+    """A_log, D and dt_bias stay fp32 when the model is asked for bf16,
+    as the JAX init keeps them."""
+    cfg = jax_smoke("mamba2-370m")
+    _, ref = _jax_params(cfg)
+    for params in (params_from_jax(ref, dtype=torch.bfloat16, device="cpu"),
+                   Model(get_smoke_config("mamba2-370m")).init_params(
+                       0, dtype=torch.bfloat16, device="cpu")):
+        mixer = params["blocks"]["sub0"]["mixer"]
+        for name, t in mixer.items():
+            want = (torch.float32 if name in mamba.FP32_LEAVES
+                    else torch.bfloat16)
+            assert t.dtype == want, name
+        assert set(mamba.FP32_LEAVES) <= set(mixer)
+    got = params_from_jax(ref, dtype=torch.bfloat16, device="cpu")
+    np.testing.assert_array_equal(
+        got["blocks"]["sub0"]["mixer"]["A_log"].numpy(),
+        ref["blocks"]["sub0"]["mixer"]["A_log"])

@@ -61,6 +61,21 @@ def test_odin_moves_blocks_off_interfered_ep(setup):
     assert sum(m.mitigation_lengths) == m.total_trials
 
 
+def test_odin_moves_blocks_off_interfered_ep_on_mamba2():
+    cfg = dataclasses.replace(get_smoke_config("mamba2-370m"), num_layers=8)
+    params = Model(cfg).init_params(0, device="cpu")
+    rng = np.random.default_rng(1)
+    queries = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 32)))
+               for _ in range(40)]
+    eng = ServingEngine(cfg, params, num_eps=4, scheduler="odin", alpha=3,
+                        device="cpu")
+    eng.executor.warmup(1, 32)
+    m = eng.serve(queries, _schedule)
+    assert m.num_rebalances >= 1
+    assert min(c[1] for c in m.configs[15:30]) < 2
+    assert all(sum(c) == cfg.num_blocks for c in m.configs)
+
+
 def test_static_scheduler_never_rebalances(setup):
     cfg, params, queries = setup
     eng = ServingEngine(cfg, params, num_eps=4, scheduler="none",
@@ -99,15 +114,20 @@ def test_reset_policy_restarts_balanced(setup):
     assert np.isfinite(eng.estimated_peak_throughput())
 
 
-def test_serve_cli_on_cpu_prints_summary():
+@pytest.mark.parametrize("arch,args", [
+    ("qwen2-0.5b", ["--queries", "12", "--blocks", "4", "--seq", "16",
+                    "--freq", "4", "--duration", "4"]),
+    ("mamba2-370m", ["--blocks", "2", "--queries", "8", "--seq", "32"]),
+])
+def test_serve_cli_on_cpu_prints_summary(arch, args):
     env = {"PYTHONPATH": str(ROOT / "src"),
            "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
            "HOME": os.environ.get("HOME", "/tmp")}
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
-         "--arch", "qwen2-0.5b", "--queries", "12", "--blocks", "4",
-         "--seq", "16", "--freq", "4", "--duration", "4", "--json"],
+         "--arch", arch, *args, "--json"],
         capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
     s = json.loads(r.stdout.strip().splitlines()[-1])
-    assert sum(s["final_config"]) == 4 and s["mean_latency_s"] > 0
+    blocks = int(args[args.index("--blocks") + 1])
+    assert sum(s["final_config"]) == blocks and s["mean_latency_s"] > 0
