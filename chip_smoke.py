@@ -8,18 +8,23 @@ phase prints its wall time.
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions.
    There must be a CUDA device.
-2. build: the port's kernels K1, K2 and K3 from their sources in this
-   checkout, one ``nvcc`` per source, all started together.
+2. build: the port's kernels K1 (its bf16 tensor-core kernel and its fp32
+   CUDA-core kernel), K2 and K3 from their sources in this checkout, one
+   ``nvcc`` per source, all started together; ``ptxas``' registers, spills
+   and the dynamic shared memory of the tensor-core kernel.
 3. K1 (flash attention) against its plain version on the card, at the
    shapes and tolerances of ``repro_torch.kernels.cases``: the JAX
-   package's FLASH_CASES shapes in fp32 (TF32 off, tolerance 2e-5) and bf16
-   (5e-2), ragged sequence lengths, and the main path's shape -- q
-   [1, 32, S, 128], k/v [1, 8, S, 128], causal, bf16, at S = 1024 and 2048,
-   contiguous and in the model's strided layout, at a tighter limit (1e-2
-   elementwise, rms error under 2e-4 of the output's rms).  At the main
-   path's shape it times the kernel, its plain version and
+   package's FLASH_CASES shapes in fp32 (TF32 off, tolerance 2e-5; the
+   CUDA-core kernel) and bf16 (5e-2; the tensor-core kernel), ragged
+   sequence lengths, TENSOR_CORE_CASES (the tensor-core kernel's corners),
+   and the main path's shape -- q [1, 32, S, 128], k/v [1, 8, S, 128],
+   causal, bf16, at S = 1024 and 2048, contiguous and in the model's
+   strided layout, at a tighter limit (1e-2 elementwise, rms error under
+   2e-4 of the output's rms).  It counts each route's launches.  At the
+   main path's shape it times the kernel, its plain version and
    ``scaled_dot_product_attention`` (a yardstick the port never calls)
-   with CUDA events, and computes the least time the card could take.
+   with CUDA events, prints the TFLOP/s of both, and computes the least
+   time the card could take.
 4. K3 (SSD scan) against its plain version (the token recurrence): the JAX
    package's SSD_CASES and ragged ones, y with max error over max |ref|
    below 1e-4 in fp32 and 5e-2 in bf16, the fp32 final state below 1e-4.
@@ -42,7 +47,9 @@ phase prints its wall time.
    output), then a ``ServingEngine`` with 4 stages under ODIN serves
    closed-loop queries of 1024 tokens with a 3x slowdown on one stage's
    device for queries 8-19.  It must rebalance, move blocks off the slowed
-   stage, conserve blocks, and run every block's attention through K1.
+   stage, conserve blocks, and run every block's attention through K1's
+   tensor-core kernel.  A clean query's block time is printed beside the
+   one measured when K1 ran bf16 on the CUDA cores.
 7. full-width mamba2-370m (48 blocks, bf16, random weights from seed 0):
    K3 at block 0's own scan inputs against the plain scan, with the
    model's dt_bias and with dt_bias drawn as Mamba2's reference init draws
@@ -66,7 +73,9 @@ tensor cores and 3.35 TB/s of HBM3.
 """
 from __future__ import annotations
 
+import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -98,6 +107,7 @@ from repro_torch.kernels.cases import (  # noqa: E402
     SSD_MAIN_TOLERANCE,
     SSD_RAGGED_CASES,
     SSD_STATE_RMS_LIMIT,
+    TENSOR_CORE_CASES,
     max_ratio,
     ssd_limit,
     tolerance,
@@ -120,7 +130,12 @@ from repro_torch.serving import ServingEngine  # noqa: E402
 PEAK_BF16_FLOPS = 989e12      # H100 SXM, dense bf16 tensor cores
 PEAK_FP32_FLOPS = 67e12       # H100 SXM, fp32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12      # H100 SXM, HBM3
-KERNELS = ("flash_attention", "decode_attention", "ssd_scan")
+KERNELS = ("flash_attention_bf16", "flash_attention", "decode_attention",
+           "ssd_scan")
+# A clean query's block time when K1 ran bf16 on the fp32 CUDA cores
+# (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W), printed beside this
+# run's.
+EARLIER_BLOCKS_MS = {"qwen3-4b": 54.99, "mamba2-370m": 60.27}
 SPIN_CYCLES = 1_000_000       # about 0.5 ms at the H100's 1.98 GHz boost
 
 SEQ = 1024                    # tokens per served query (the main path)
@@ -292,18 +307,58 @@ def decode_work(B, Hq, Hkv, S, D, index, window, elem_bytes) -> tuple:
     return flops, nbytes
 
 
+ROUTES = ("tensor_core_launches", "cuda_core_launches")
+
+
+def reset_counts(wrapper) -> None:
+    """Set every launch count of a kernel wrapper to 0."""
+    for name in list(vars(wrapper)):
+        if name.endswith("launches"):
+            setattr(wrapper, name, 0)
+
+
+def route_counts() -> dict:
+    return {r: getattr(flash_attention, r) for r in ROUTES}
+
+
+def ptxas_lines(nvcc_log: str) -> list:
+    """One line per entry function of an ``nvcc -Xptxas=-v`` log: its
+    registers and spills."""
+    lines = []
+    for block in nvcc_log.split("Compiling entry function")[1:]:
+        name = re.search(r"'(\S+)'", block).group(1)
+        dp = re.search(r"ILi(\d+)E", name)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        lines.append((int(dp.group(1)) if dp else None,
+                      f"{regs.group(1) if regs else '?'} registers, "
+                      f"{spill.group(1) if spill else '?'} B spill stores, "
+                      f"{spill.group(2) if spill else '?'} B spill loads"))
+    return lines
+
+
 def phase_kernel_check() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for case in FLASH_CASES + RAGGED_CASES:
+    reset_counts(flash_attention)
+    expected = {r: 0 for r in ROUTES}
+    for case in FLASH_CASES + RAGGED_CASES + TENSOR_CORE_CASES:
         B, Hq, Hkv, S, D, causal, window, dtype = case
         q = randn(gen, (B, Hq, S, D), dtype)
         k = randn(gen, (B, Hkv, S, D), dtype)
         v = randn(gen, (B, Hkv, S, D), dtype)
         out = ops.flash_attention(q, k, v, causal=causal, window=window,
                                   impl="cuda")
+        expected[ROUTES[dtype != "bfloat16"]] += 1
         ref = flash_attention_ref(q, k, v, causal=causal, window=window)
         got = compare(out, ref, tolerance(dtype), str(case))
-        log(f"  K1 {case}: max |err| {got['max_abs_err']:.3e}")
+        log(f"  K1 {case}: max |err| {got['max_abs_err']:.3e}, rms err / "
+            f"rms ref {got['rms_err'] / got['rms_ref']:.3e}")
+    log(f"  K1 launches by route over these cases: {route_counts()}")
+    if route_counts() != expected:
+        raise AssertionError(f"K1 routes: {route_counts()}, expected "
+                             f"{expected} (bf16 on the tensor cores, fp32 on "
+                             f"the CUDA cores)")
 
     main = {}
     for case in MAIN_CASES:
@@ -311,9 +366,13 @@ def phase_kernel_check() -> dict:
         q = randn(gen, (B, Hq, S, D), dtype)
         k = randn(gen, (B, Hkv, S, D), dtype)
         v = randn(gen, (B, Hkv, S, D), dtype)
+        before = route_counts()["tensor_core_launches"]
         got = compare(ops.flash_attention(q, k, v, impl="cuda"),
                       flash_attention_ref(q, k, v), MAIN_TOLERANCE,
                       f"main S={S}", MAIN_RMS_LIMIT)
+        if route_counts()["tensor_core_launches"] != before + 1:
+            raise AssertionError("the main shape did not run on the "
+                                 "tensor-core kernel")
         # The model's layout: [B, S, H, D] projections, read in place.
         x = randn(gen, (B, S, Hq + 2 * Hkv, D), dtype)
         qs = x[:, :, :Hq].transpose(1, 2)
@@ -323,8 +382,10 @@ def phase_kernel_check() -> dict:
         strided = compare(out, flash_attention_ref(qs, ks, vs),
                           MAIN_TOLERANCE, f"main S={S} strided",
                           MAIN_RMS_LIMIT)
-        log(f"  K1 main S={S}: contiguous {got}, strided {strided} "
-            f"(limits {MAIN_TOLERANCE}, rms {MAIN_RMS_LIMIT})")
+        log(f"  K1 main S={S}: contiguous {got}, strided {strided}, rms err "
+            f"/ rms ref {got['rms_err'] / got['rms_ref']:.3e} and "
+            f"{strided['rms_err'] / strided['rms_ref']:.3e} (limits "
+            f"{MAIN_TOLERANCE}, rms {MAIN_RMS_LIMIT})")
         err = max(got["max_abs_err"], strided["max_abs_err"])
         if not out.transpose(1, 2).is_contiguous():
             raise AssertionError("kernel output is not in the model's "
@@ -343,9 +404,10 @@ def phase_kernel_check() -> dict:
                        bound_by=bound_by)
         log(f"  K1 main S={S}: max |err| {err:.3e}  kernel_ms {kernel_ms:.4f}"
             f"  plain_ms {plain_ms:.4f}  library_ms {library_ms:.4f}"
-            f"  bound_ms {bound_ms:.5f} ({bound_by}; {flops / 1e9:.2f} GFLOP,"
-            f" {flops / kernel_ms / 1e9:.1f} TFLOP/s achieved; the same "
-            f"products at the fp32 peak: {fp32_ms:.4f} ms)")
+            f"  bound_ms {bound_ms:.5f} ({bound_by}; {flops / 1e9:.2f} GFLOP;"
+            f" TFLOP/s achieved: kernel {flops / kernel_ms / 1e9:.1f}, "
+            f"scaled_dot_product_attention {flops / library_ms / 1e9:.1f}; "
+            f"the same products at the fp32 peak: {fp32_ms:.4f} ms)")
     return main
 
 
@@ -517,11 +579,13 @@ def serve_under_odin(cfg, params, counter, kernel: str,
                for _ in range(NUM_QUERIES)]
 
     start_config = eng.config
-    counter.launches = 0
+    reset_counts(counter)
     t0 = time.perf_counter()
     trace = eng.serve(queries, schedule)
     wall = time.perf_counter() - t0
-    launches = counter.launches
+    counts = {name: n for name, n in vars(counter).items()
+              if name.endswith("launches")}
+    launches = counts.pop("launches")
 
     summary = trace.summary()
     log(f"  served {NUM_QUERIES} queries of {SEQ} tokens in {wall:.2f} s: "
@@ -529,7 +593,8 @@ def serve_under_odin(cfg, params, counter, kernel: str,
     log(f"  configs: {trace.configs}")
     log(f"  start {start_config}, final {trace.configs[-1]}, "
         f"rebalances {trace.num_rebalances}, trials {trace.total_trials}, "
-        f"{kernel} launches {launches}")
+        f"{kernel} launches {launches}" + (f", by route {counts}" if counts
+                                           else ""))
     episode = trace.configs[SLOW_FROM:SLOW_TO]
     if trace.num_rebalances < 1:
         raise AssertionError("ODIN never rebalanced")
@@ -563,11 +628,12 @@ def serve_under_odin(cfg, params, counter, kernel: str,
     t2 = time.perf_counter()
     kern = cfg.num_blocks * per_block_ms
     log(f"  clean query on {start_config}: blocks {1e3 * (t1 - t0):.2f} ms "
-        f"(stages {[round(1e3 * float(s), 2) for s in stages]}), head "
+        f"(before: {EARLIER_BLOCKS_MS[cfg.name]} ms; stages "
+        f"{[round(1e3 * float(s), 2) for s in stages]}), head "
         f"{1e3 * (t2 - t1):.2f} ms; {kernel} {cfg.num_blocks} x "
-        f"{per_block_ms:.3f} = {kern:.2f} ms ({100 * kern / (1e3 * (t2 - t0)):.0f}"
+        f"{per_block_ms:.4f} = {kern:.2f} ms ({100 * kern / (1e3 * (t2 - t0)):.0f}"
         f"% of blocks + head)")
-    return dict(launches=launches, summary=summary)
+    return dict(launches=launches, counts=counts, summary=summary)
 
 
 def init_model(arch: str) -> tuple:
@@ -616,6 +682,11 @@ def phase_qwen(cfg, params, kernel_ms: float) -> dict:
         f"one block {block_ms:.3f} ms, of which attention {kernel_ms:.3f}"
         f" ms ({100 * kernel_ms / block_ms:.0f}%)")
     served = serve_under_odin(cfg, params, flash_attention, "K1", kernel_ms)
+    want = {"tensor_core_launches": cfg.num_blocks * NUM_QUERIES,
+            "cuda_core_launches": 0}
+    if served["counts"] != want:
+        raise AssertionError(f"K1 routes while serving: {served['counts']}, "
+                             f"expected {want}")
     d, hd = cfg.d_model, cfg.head_dim
     products = 2 * SEQ * (d * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd
                           + cfg.num_heads * hd * d + 3 * d * cfg.d_ff)
@@ -704,13 +775,14 @@ def phase_cached(qcfg, qparams, mcfg, mparams) -> dict:
         rng.integers(0, qcfg.vocab_size, (1, DECODE_STEPS)), device="cuda")
     with torch.inference_mode():
         cache = model.init_cache(1, CACHE_LEN, torch.bfloat16, "cuda")
-        flash_attention.launches = 0
+        reset_counts(flash_attention)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         last, cache = model.prefill(qparams, tokens=prompt, cache=cache)
         torch.cuda.synchronize()
         prefill_ms = 1e3 * (time.perf_counter() - t0)
         k1 = flash_attention.launches
+        k1_tensor_cores = flash_attention.tensor_core_launches
         full = model.forward(qparams, prompt)
         prefill_ratio = rel_rms(last[:, 0], full[:, -1])
         del full
@@ -734,7 +806,7 @@ def phase_cached(qcfg, qparams, mcfg, mparams) -> dict:
                                                impl="ref")
         sub_ratio = rel_rms(o_kernel, o_plain)
         cache_plain = clone_tree(cache)
-        decode_attention.launches = 0
+        reset_counts(decode_attention)
         kern, kern_ms = decode_loop(model, qparams, cache, cont, SEQ, "auto")
         launches = decode_attention.launches
         plain, plain_ms = decode_loop(model, qparams, cache_plain, cont, SEQ,
@@ -754,8 +826,9 @@ def phase_cached(qcfg, qparams, mcfg, mparams) -> dict:
         f"{np.median(plain_ms):.2f}; logits K2 vs plain rms|d|/rms|ref| per "
         f"step {[f'{r:.2e}' for r in ratios]} (max {max(ratios):.3e}, limit "
         f"{DECODE_RMS_LIMIT})")
-    if k1 != qcfg.num_blocks:
-        raise AssertionError(f"prefill launched K1 {k1} times")
+    if not k1 == k1_tensor_cores == qcfg.num_blocks:
+        raise AssertionError(f"prefill launched K1 {k1} times, "
+                             f"{k1_tensor_cores} on the tensor cores")
     if launches != qcfg.num_blocks * DECODE_STEPS:
         raise AssertionError(f"K2 launched {launches} times, expected "
                              f"{qcfg.num_blocks} x {DECODE_STEPS}")
@@ -781,7 +854,7 @@ def phase_cached(qcfg, qparams, mcfg, mparams) -> dict:
         device="cuda")
     with torch.inference_mode():
         cache = model.init_cache(1, CACHE_LEN, torch.bfloat16, "cuda")
-        ssd_scan.launches = 0
+        reset_counts(ssd_scan)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         last, cache = model.prefill(mparams, tokens=prompt[:, :SEQ],
@@ -846,11 +919,18 @@ def main() -> None:
         return result
 
     def build_all():
-        for name, nvcc_log in build.build_kernels(KERNELS).items():
+        logs = build.build_kernels(KERNELS)
+        for name, nvcc_log in logs.items():
             log(f"  {name}: {build.lib_path(name).name}"
                 + ("" if nvcc_log is None else f"\n{nvcc_log}"))
+        lib = build.load("flash_attention_bf16")
+        smem = lib.odin_flash_attention_bf16_smem_bytes
+        smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+        for dp, line in ptxas_lines(logs["flash_attention_bf16"] or ""):
+            log(f"  K1 tensor-core kernel, head dims padded to {dp}: {line}, "
+                f"{smem(dp)} B dynamic shared memory")
 
-    phase("phase 2: build K1, K2, K3", build_all)
+    phase("phase 2: build K1 (bf16 and fp32), K2, K3", build_all)
     main_k1 = phase("phase 3: K1 against its plain version",
                     phase_kernel_check)
     k3 = phase("phase 4: K3 against its plain version", phase_ssd_check)
@@ -867,15 +947,17 @@ def main() -> None:
     k1 = main_k1[SEQ]
     k1 = dict(k1, max_abs_err=max(m["max_abs_err"] for m in main_k1.values()))
     rows = [
-        ("flash_attention", "flash_attention.py:96", served["launches"], k1),
+        ("flash_attention", "flash_attention.py:96",
+         served["counts"]["tensor_core_launches"], k1),
         ("decode_attention", "decode_attention.py:78",
          cached["qwen3-4b"]["launches"], k2),
         ("ssd_scan", "ssd_scan.py:71", served_m["launches"], k3),
     ]
+    sources = {"flash_attention": "flash_attention_bf16"}
     kernels = [{
         "name": name,
         "route": "cuda",
-        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+        "source": f"src/repro_torch/kernels/csrc/{sources.get(name, name)}.cu",
         "replaces": f"src/repro/kernels/{replaces}",
         "launches": launches,
         "max_abs_err": m["max_abs_err"],

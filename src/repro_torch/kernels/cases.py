@@ -2,9 +2,10 @@
 plain version, in the tests and on the card.
 
 K1 (flash attention): a case is ``(B, Hq, Hkv, S, D, causal, window,
-dtype)``.  K2 (decode attention): ``(B, Hq, Hkv, S, D, index, window,
-dtype)``.  K3 (SSD scan): ``(b, S, H, P, N, chunk, dtype)``.  Dtypes are
-named as torch dtypes.
+dtype)``; bf16 cases run on its tensor-core kernel, fp32 ones on its
+CUDA-core kernel.  K2 (decode attention): ``(B, Hq, Hkv, S, D, index,
+window, dtype)``.  K3 (SSD scan): ``(b, S, H, P, N, chunk, dtype)``.
+Dtypes are named as torch dtypes.
 """
 from __future__ import annotations
 
@@ -27,6 +28,18 @@ RAGGED_CASES = [
     (2, 4, 1, 200, 56, True, 48, "float32"),
     (2, 4, 2, 1000, 128, True, 100, "bfloat16"),
     (1, 4, 2, 130, 128, False, None, "bfloat16"),
+]
+# bf16 shapes that reach the corners of the tensor-core kernel
+# (csrc/flash_attention_bf16.cu: 128-row query blocks, 128-key tiles,
+# 64-column head-dim panels).
+TENSOR_CORE_CASES = [
+    (1, 4, 2, 200, 56, True, None, "bfloat16"),    # D 56: padded to 64
+    (2, 4, 2, 256, 80, True, None, "bfloat16"),    # D 80: padded to 128
+    (1, 4, 2, 1, 128, True, None, "bfloat16"),     # S 1
+    (2, 4, 1, 17, 64, True, None, "bfloat16"),     # S 17, below one tile
+    (1, 14, 2, 384, 64, True, None, "bfloat16"),   # group 7 (qwen2 ratios)
+    (1, 4, 2, 300, 128, True, 16, "bfloat16"),     # window below one tile
+    (2, 4, 2, 333, 64, False, None, "bfloat16"),   # bidirectional, ragged
 ]
 # The main path: qwen3-4b's attention, q [1, 32, S, 128], k/v [1, 8, S, 128].
 MAIN_SEQS = (1024, 2048)

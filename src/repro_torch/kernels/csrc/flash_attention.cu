@@ -1,34 +1,34 @@
-// Flash attention forward for Hopper (sm_90a), plain C interface.
+// Flash attention forward for Hopper (sm_90a) in fp32, plain C interface.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::flash_attention
-// (body _flash_kernel): online-softmax attention with scale D^-0.5, running
-// (m, l, acc) in fp32, causal / sliding-window (qp - kp < window) /
-// bidirectional masks, fully masked KV tiles skipped, GQA by
-// kv_head = q_head / group, masked scores set to -1e30 and the normaliser
-// floored at 1e-30 -- the same arithmetic, tile for tile.
+// (body _flash_kernel) for fp32 inputs: online-softmax attention with scale
+// D^-0.5, running (m, l, acc) in fp32, causal / sliding-window
+// (qp - kp < window) / bidirectional masks, fully masked KV tiles skipped,
+// GQA by kv_head = q_head / group, masked scores set to -1e30 and the
+// normaliser floored at 1e-30 -- the same arithmetic, tile for tile.  bf16
+// inputs go to the tensor-core kernel of flash_attention_bf16.cu.
 //
 // What bounds it on an H100: for long sequences the two matrix products
 // (2 * B * Hq * S^2 * D operations when causal) -- the work grows as S^2
 // while the bytes (q, k, v, o once each) grow as S; for short sequences the
-// bytes and the launch.  This first design keeps the S x S score matrix out
-// of device memory entirely (each 64 x 32 score tile lives in shared memory
-// and is consumed at once), reads each K/V tile once per 64 query rows, and
-// skips tiles beyond the causal frontier or outside the window, which halves
-// the causal work.  The products run on the fp32 CUDA cores with float4
+// bytes and the launch.  It keeps the S x S score matrix out of device
+// memory entirely (each 64 x 32 score tile lives in shared memory and is
+// consumed at once), reads each K/V tile once per 64 query rows, and skips
+// tiles beyond the causal frontier or outside the window, which halves the
+// causal work.  The products run on the fp32 CUDA cores with float4
 // shared-memory reads (register-tiled 4 x 2 scores and 4 x 8 outputs per
-// thread); tensor cores (wgmma), TMA and warp specialisation are left to a
-// later kernel, so this one is far from the bf16 tensor-core bound.
+// thread): the JAX package's fp32 limit (2e-5) rules out TF32, the only
+// tensor-core type that takes fp32 operands.
 //
 // Layout: q [B, Hq, S, D] and k, v [B, Hkv, S, D] given by element strides
 // (batch, head, sequence; the head-dim stride must be 1), so the model's
 // [B, S, H, D] projections are read in place.  The output is written with
 // its own strides.  Any S (the ragged last tile is masked), D <= 128 with
-// D % 4 == 0, fp32 or bf16 inputs with fp32 accumulation.
+// D % 4 == 0, fp32 inputs and accumulation.
 //
 // Grid: one block of 256 threads per (64-row query tile, query head, batch);
 // the KV axis is a loop inside the block, not a grid axis.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -42,13 +42,7 @@ constexpr int MAX_D = 128;
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float comp(const float4& v, int u) {
   return u == 0 ? v.x : (u == 1 ? v.y : (u == 2 ? v.z : v.w));
@@ -287,21 +281,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" {
 
 // strides: 12 element strides, (batch, head, sequence) for q, k, v, o.
-// dtype: 0 = float32, 1 = bfloat16.  window <= 0 means no window.
-// Returns cudaGetLastError() after the launch (0 on success).
+// float32 q/k/v/o.  window <= 0 means no window.  Returns
+// cudaGetLastError() after the launch (0 on success).
 int odin_flash_attention_fwd(const void* q, const void* k, const void* v,
                              void* o, int B, int Hq, int Hkv, int S, int D,
                              const long long* strides, int causal,
-                             int window, float scale, int dtype,
-                             void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(q, k, v, o, B, Hq, Hkv, S, D, strides, causal,
-                         window, scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, S, D, strides,
-                                 causal, window, scale, s);
-  return (int)cudaErrorInvalidValue;
+                             int window, float scale, void* stream) {
+  return launch<float>(q, k, v, o, B, Hq, Hkv, S, D, strides, causal, window,
+                       scale, static_cast<cudaStream_t>(stream));
 }
 
 const char* odin_cuda_error_string(int code) {

@@ -31,6 +31,7 @@ from repro_torch.kernels.cases import (  # noqa: E402
     SSD_MAIN_TOLERANCE,
     SSD_RAGGED_CASES,
     SSD_STATE_RMS_LIMIT,
+    TENSOR_CORE_CASES,
     case_id,
     decode_case_id,
     max_ratio,
@@ -81,16 +82,24 @@ def card():
     torch.backends.cudnn.allow_tf32 = False
 
 
+def _route_counts():
+    return (flash_attention.launches, flash_attention.tensor_core_launches,
+            flash_attention.cuda_core_launches)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", FLASH_CASES + RAGGED_CASES, ids=case_id)
+@pytest.mark.parametrize("case", FLASH_CASES + RAGGED_CASES
+                         + TENSOR_CORE_CASES, ids=case_id)
 def test_kernel_matches_plain_version(card, case):
+    """bf16 runs on the tensor-core kernel, fp32 on the CUDA-core one."""
     B, Hq, Hkv, S, D, causal, window, dtype = case
     q, k, v = _inputs([(B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D)], dtype)
-    n = flash_attention.launches
+    n, tc, cc = _route_counts()
     got = ops.flash_attention(q, k, v, causal=causal, window=window,
                               impl="cuda")
     torch.cuda.synchronize()
-    assert flash_attention.launches == n + 1
+    bf16 = dtype == "bfloat16"
+    assert _route_counts() == (n + 1, tc + bf16, cc + (not bf16))
     assert got.dtype == q.dtype and got.shape == q.shape
     want = flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got.float(), want.float(), **tolerance(dtype))
@@ -99,12 +108,30 @@ def test_kernel_matches_plain_version(card, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", MAIN_CASES, ids=case_id)
 def test_kernel_matches_plain_version_at_main_path_shape(card, case):
+    """Contiguous q/k/v, and views of one [B, S, H, D] projection as the
+    model hands them over (read in place through TMA)."""
     B, Hq, Hkv, S, D, causal, window, dtype = case
     q, k, v = _inputs([(B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D)], dtype)
-    got = ops.flash_attention(q, k, v, causal=causal, window=window,
-                              impl="cuda")
-    want = flash_attention_ref(q, k, v, causal=causal, window=window)
-    _assert_close_by_rms(got, want, MAIN_TOLERANCE, MAIN_RMS_LIMIT)
+    (x,) = _inputs([(B, S, Hq + 2 * Hkv, D)], dtype, seed=3)
+    views = (x[:, :, :Hq].transpose(1, 2),
+             x[:, :, Hq:Hq + Hkv].transpose(1, 2),
+             x[:, :, Hq + Hkv:].transpose(1, 2))
+    for q, k, v in ((q, k, v), views):
+        got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  impl="cuda")
+        want = flash_attention_ref(q, k, v, causal=causal, window=window)
+        _assert_close_by_rms(got, want, MAIN_TOLERANCE, MAIN_RMS_LIMIT)
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_rejects_misaligned_views(card):
+    """TMA needs strides that are multiples of 16 bytes: a view that breaks
+    the rule is refused, never read wrong."""
+    (x,) = _inputs([(1, 64, 4 * 64 + 4)], "bfloat16")
+    q = x[:, :, :256].reshape(1, 64, 4, 64).transpose(1, 2)
+    assert q.stride(2) % 8
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ops.flash_attention(q, q[:, :2], q[:, :2], impl="cuda")
 
 
 @pytest.mark.cuda

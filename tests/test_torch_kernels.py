@@ -27,12 +27,15 @@ from repro_torch.kernels.cases import (  # noqa: E402
     DECODE_MAIN_TOLERANCE,
     DECODE_RAGGED_CASES,
     FLASH_CASES,
+    MAIN_RMS_LIMIT,
+    MAIN_TOLERANCE,
     RAGGED_CASES,
     SSD_CASES,
     SSD_MAIN_CASE,
     SSD_MAIN_RMS_LIMIT,
     SSD_MAIN_TOLERANCE,
     SSD_RAGGED_CASES,
+    TENSOR_CORE_CASES,
     case_id,
     decode_case_id,
     max_ratio,
@@ -79,9 +82,12 @@ def test_flash_attention_matches_jax(case):
                                    **tolerance(dtype))
 
 
-@pytest.mark.parametrize("case", RAGGED_CASES,
+@pytest.mark.parametrize("case", RAGGED_CASES + TENSOR_CORE_CASES,
                          ids=case_id)
 def test_flash_attention_ragged_sequence(case):
+    """S not a multiple of 64, and the bf16 shapes that reach the corners
+    of the tensor-core kernel (padded head dims, S below one tile, group 7,
+    a narrow window, a ragged bidirectional S)."""
     B, Hq, Hkv, S, D, causal, window, dtype = case
     (jq, jk, jv), (q, k, v) = _inputs(B, Hq, Hkv, S, D, dtype, seed=1)
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
@@ -89,6 +95,58 @@ def test_flash_attention_ragged_sequence(case):
                                        window=window)
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), **tolerance(dtype))
+
+
+def _tensor_core_emulation(q, k, v, split: bool, block_k: int = 128):
+    """The rounding of the bf16 tensor-core kernel, on the CPU: 128-key
+    tiles, online softmax in fp32, bf16 products summed in fp32, and P
+    split into bf16 hi = bf16(P) and lo = bf16(P - hi) for P V (with
+    ``split`` False, P in bf16 alone).  l is summed from the fp32 P.
+    Causal, q [B, Hq, S, D], k/v [B, Hkv, S, D] -> bf16."""
+    B, Hq, S, D = q.shape
+    group = Hq // k.shape[1]
+    qf = q.float()
+    kf = k.float().repeat_interleave(group, 1)
+    vf = v.float().repeat_interleave(group, 1)
+    m = torch.full((B, Hq, S, 1), -1e30)
+    l = torch.zeros((B, Hq, S, 1))
+    acc = torch.zeros((B, Hq, S, D))
+    qp = torch.arange(S)[:, None]
+    for k0 in range(0, S, block_k):
+        kp = torch.arange(k0, min(k0 + block_k, S))[None, :]
+        s = qf @ kf[:, :, k0:k0 + block_k].transpose(-1, -2) * D ** -0.5
+        s = torch.where(qp >= kp, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        tile_v = vf[:, :, k0:k0 + block_k]
+        pv = hi @ tile_v
+        if split:
+            pv = pv + (p - hi).to(torch.bfloat16).float() @ tile_v
+        acc = acc * alpha + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["hi_lo", "bf16_p"])
+def test_tensor_core_rounding_meets_main_limits_only_with_split_p(split):
+    """At the main path's S and D, the tensor-core kernel's rounding with P
+    split into bf16 hi and lo passes MAIN_TOLERANCE and MAIN_RMS_LIMIT
+    against the JAX oracle; with P rounded to bf16 alone it fails the rms
+    limit (about 2e-3 of rms(ref), ten times the limit)."""
+    (jq, jk, jv), (q, k, v) = _inputs(1, 4, 2, 1024, 128, "bfloat16", seed=5)
+    got = _tensor_core_emulation(q, k, v, split).float().numpy()
+    want = np.asarray(jax_ref.flash_attention_ref(jq, jk, jv), np.float32)
+    d = got - want
+    elementwise = bool(np.all(np.abs(d) <= MAIN_TOLERANCE["atol"]
+                              + MAIN_TOLERANCE["rtol"] * np.abs(want)))
+    rms_ratio = np.sqrt(np.mean(d ** 2)) / np.sqrt(np.mean(want ** 2))
+    if split:
+        assert elementwise and rms_ratio <= MAIN_RMS_LIMIT
+    else:
+        assert rms_ratio > MAIN_RMS_LIMIT
 
 
 def test_strided_model_layout_matches_contiguous():
@@ -123,9 +181,15 @@ def test_wrapper_takes_plain_version_on_cpu():
     assert flash_attention.launches == launches   # no kernel ran
 
 
-@pytest.mark.parametrize("bad", ["shape", "heads", "window"])
+@pytest.mark.parametrize("bad", ["shape", "heads", "window",
+                                 "bf16_head_dim", "head_dim"])
 def test_wrapper_rejects_bad_inputs(bad):
-    (_, _, _), (q, k, v) = _inputs(1, 4, 2, 64, 64, "float32")
+    """Shapes neither kernel takes are refused on every device: among them
+    a bf16 head dim that is not a multiple of 8 (TMA's 16-byte stride
+    rule) and one above 128."""
+    D = {"bf16_head_dim": 60, "head_dim": 136}.get(bad, 64)
+    dtype = "bfloat16" if bad == "bf16_head_dim" else "float32"
+    (_, _, _), (q, k, v) = _inputs(1, 4, 2, 64, D, dtype)
     if bad == "shape":
         k = k[:, :, :32]
     elif bad == "heads":
