@@ -20,9 +20,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -70,12 +71,34 @@ def build_kernel(name: str) -> Optional[str]:
     return r.stdout
 
 
-def build_kernels(names: Sequence[str]) -> Dict[str, Optional[str]]:
+def _timed_build(name: str) -> Tuple[Optional[str], float]:
+    t0 = time.perf_counter()
+    out = build_kernel(name)
+    return out, time.perf_counter() - t0
+
+
+def build_kernels(names: Sequence[str]
+                  ) -> Dict[str, Tuple[Optional[str], float]]:
     """:func:`build_kernel` for each name, with one ``nvcc`` per source,
-    all started together.  Raises if any build fails."""
+    all started together: name -> (``nvcc``'s output or None, seconds).
+    Raises if any build fails."""
     with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
-        futures = {name: pool.submit(build_kernel, name) for name in names}
+        futures = {name: pool.submit(_timed_build, name) for name in names}
         return {name: f.result() for name, f in futures.items()}
+
+
+def check_copy_strides(what: str, *tensors) -> None:
+    """The kernels copy 16-byte pieces of rows (TMA, ``cp.async``): each
+    tensor's base must be 16-byte aligned and every stride but the
+    innermost (of a dimension longer than 1) a multiple of 16 bytes."""
+    for t in tensors:
+        per16 = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(t.stride(i) % per16
+                                    for i in range(t.dim() - 1)
+                                    if t.shape[i] > 1):
+            raise ValueError(f"{what} needs 16-byte aligned tensors with "
+                             f"strides that are multiples of {per16} "
+                             f"elements; got strides {t.stride()}")
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -72,6 +72,18 @@ DECODE_RAGGED_CASES = [
     (2, 12, 4, 333, 128, 332, 100, "bfloat16"),
     (1, 14, 2, 300, 56, 123, None, "bfloat16"),
 ]
+# The corners of the kernel's split of the live slots among the blocks of
+# a cluster: one live slot (index 0), every slot live (index S - 1), fewer
+# live slots than blocks (index inside the first split), a window narrower
+# than one block's share of the cache, and group 7 at D 64.
+DECODE_CORNER_CASES = [
+    (1, 8, 2, 256, 64, 0, None, "bfloat16"),
+    (2, 8, 2, 256, 128, 255, None, "bfloat16"),
+    (1, 32, 8, 2048, 128, 5, None, "bfloat16"),
+    (1, 32, 8, 2048, 128, 1500, 40, "bfloat16"),
+    (1, 14, 2, 512, 64, 300, None, "bfloat16"),
+    (1, 4, 2, 100, 64, 0, None, "float32"),
+]
 # The main path: qwen3-4b's decode, q [1, 32, 128] against a 2048-slot
 # cache holding a 1024-token prompt and 16 decoded tokens.
 DECODE_MAIN_CASE = (1, 32, 8, 2048, 128, 1040, None, "bfloat16")
@@ -95,6 +107,18 @@ SSD_CASES = [
 SSD_RAGGED_CASES = [
     (1, 200, 4, 64, 128, 64, "float32"),
     (2, 77, 3, 32, 32, 32, "bfloat16"),
+]
+# The corners of the chunk-parallel kernel's tiles (64-row tiles of a
+# chunk): S below one tile, a one-token last chunk (S 1025, chunk 256),
+# a chunk that is not a multiple of the tile, N 64 with P 32, and more
+# chunks than heads.
+SSD_CORNER_CASES = [
+    (1, 17, 4, 64, 128, 256, "bfloat16"),
+    (1, 1025, 32, 64, 128, 256, "bfloat16"),
+    (1, 300, 4, 64, 128, 96, "bfloat16"),
+    (1, 256, 4, 32, 64, 64, "bfloat16"),
+    (2, 512, 2, 64, 32, 32, "bfloat16"),
+    (1, 200, 3, 32, 64, 96, "float32"),
 ]
 # The main path: one mamba2-370m block at S = 1024 (H 32, P 64, N 128,
 # the model's chunk of 256).

@@ -78,17 +78,6 @@ def _entry(name: str, entry: str) -> tuple:
     return lib, fn
 
 
-def _check_tma(*tensors: torch.Tensor) -> None:
-    """TMA reads a tensor from a 16-byte aligned address, with every stride
-    but the innermost a multiple of 16 bytes (8 bf16 elements)."""
-    for t in tensors:
-        if t.data_ptr() % 16 or any(t.stride(i) % 8 for i in range(3)
-                                    if t.shape[i] > 1):
-            raise ValueError(f"the bf16 kernel needs 16-byte aligned q/k/v "
-                             f"with strides that are multiples of 8 "
-                             f"elements; got strides {t.stride()}")
-
-
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool, window: Optional[int]) -> torch.Tensor:
     if not (k.device == v.device == q.device):
@@ -100,8 +89,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k and v need a head-dim stride of 1")
     name, entry, counter = _ROUTES[q.dtype]
-    if q.dtype == torch.bfloat16:
-        _check_tma(q, k, v)
+    if q.dtype == torch.bfloat16:      # TMA's rule
+        build.check_copy_strides("the bf16 kernel", q, k, v)
     out = torch.empty_like(q)      # keeps q's strides (dense views)
     strides = (ctypes.c_longlong * 12)(
         *(t.stride(i) for t in (q, k, v, out) for i in (0, 1, 2)))

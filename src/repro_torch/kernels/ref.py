@@ -47,6 +47,9 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: [B, Hq, D]; k, v: [B, Hkv, S, D]; ``index`` (an int or a 0-d
     tensor) is the newest valid slot: slots past it, and with a window
     slots at or before ``index - window``, are masked with -1e30.
+    Computed in fp64 and rounded to fp32, then to q's dtype: two fp32
+    versions that sum in different orders round about one bf16 output in
+    a few thousand to different sides, and in fp64 they agree to ~1e-15.
     Returns [B, Hq, D] in q's dtype.
     """
     B, Hq, D = q.shape
@@ -54,15 +57,15 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     group = Hq // Hkv
     k = k.repeat_interleave(group, dim=1)
     v = v.repeat_interleave(group, dim=1)
-    s = torch.einsum("bhd,bhkd->bhk", q.float(), k.float()) * (D ** -0.5)
+    s = torch.einsum("bhd,bhkd->bhk", q.double(), k.double()) * (D ** -0.5)
     kp = torch.arange(S, device=q.device)
     mask = kp <= index
     if window is not None:
         mask &= kp > index - window
     s = torch.where(mask[None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhk,bhkd->bhd", p, v.float())
-    return out.to(q.dtype)
+    out = torch.einsum("bhk,bhkd->bhd", p, v.double())
+    return out.float().to(q.dtype)
 
 
 def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

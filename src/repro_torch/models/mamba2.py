@@ -175,7 +175,7 @@ def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def _chunk(chunk_size: int, S: int) -> int:
     """The JAX model's chunk: min(chunk_size, S), halved until it divides
-    S."""
+    S (its ``ssd_chunked`` needs that)."""
     chunk = min(chunk_size, S)
     while S % chunk:
         chunk //= 2
@@ -205,8 +205,11 @@ def _mixer(params: dict, cfg: ModelConfig, x: torch.Tensor, impl: str):
     final SSM state [B, H, P, N] in fp32)."""
     B_, S, d = x.shape
     z, xBC_pre, xs, dt, A, Bm, Cm = scan_inputs(params, cfg, x)
-    y, state = ops.ssd_scan(xs, dt, A, Bm, Cm,
-                            chunk=_chunk(cfg.ssm.chunk_size, S), impl=impl)
+    # The kernel masks a short last chunk, so the config's chunk goes as it
+    # is (the JAX rule would give an odd S chunks of one token); the plain
+    # token recurrence ignores it.
+    y, state = ops.ssd_scan(xs, dt, A, Bm, Cm, chunk=cfg.ssm.chunk_size,
+                            impl=impl)
     y = y + xs * params["D"].to(x.dtype)[None, None, :, None]
     y = y.reshape(B_, S, cfg.ssm.d_inner(d))
     y = rms_norm(y * F.silu(z), params["norm_scale"], cfg.rms_eps)

@@ -16,6 +16,7 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
     DECODE_CASES,
+    DECODE_CORNER_CASES,
     DECODE_MAIN_CASE,
     DECODE_MAIN_RMS_LIMIT,
     DECODE_MAIN_TOLERANCE,
@@ -26,6 +27,7 @@ from repro_torch.kernels.cases import (  # noqa: E402
     MAIN_TOLERANCE,
     RAGGED_CASES,
     SSD_CASES,
+    SSD_CORNER_CASES,
     SSD_MAIN_CASE,
     SSD_MAIN_RMS_LIMIT,
     SSD_MAIN_TOLERANCE,
@@ -203,8 +205,8 @@ def _ssd_inputs(b, S, H, P, N, dtype, seed=0, slow=False):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", SSD_CASES + SSD_RAGGED_CASES,
-                         ids=ssd_case_id)
+@pytest.mark.parametrize("case", SSD_CASES + SSD_RAGGED_CASES
+                         + SSD_CORNER_CASES, ids=ssd_case_id)
 def test_ssd_kernel_matches_plain_version(card, case):
     b, S, H, P, N, chunk, dtype = case
     ins = _ssd_inputs(b, S, H, P, N, dtype)
@@ -240,7 +242,8 @@ def test_ssd_kernel_depends_on_chunk_only_through_rounding(card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", DECODE_CASES + DECODE_RAGGED_CASES
-                         + [DECODE_MAIN_CASE], ids=decode_case_id)
+                         + DECODE_CORNER_CASES + [DECODE_MAIN_CASE],
+                         ids=decode_case_id)
 def test_decode_kernel_matches_plain_version(card, case):
     B, Hq, Hkv, S, D, idx, window, dtype = case
     q, k, v = _inputs([(B, Hq, D), (B, Hkv, S, D), (B, Hkv, S, D)], dtype)
@@ -256,6 +259,20 @@ def test_decode_kernel_matches_plain_version(card, case):
     else:
         torch.testing.assert_close(got.float(), want.float(),
                                    **tolerance(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(1, 9))
+def test_decode_kernel_main_case_holds_over_draws(card, seed):
+    """DECODE_MAIN_TOLERANCE and DECODE_MAIN_RMS_LIMIT on several draws: a
+    single bf16 output one ulp off reads an rms over the limit."""
+    B, Hq, Hkv, S, D, idx, window, dtype = DECODE_MAIN_CASE
+    q, k, v = _inputs([(B, Hq, D), (B, Hkv, S, D), (B, Hkv, S, D)], dtype,
+                      seed=seed)
+    got = ops.decode_attention(q, k, v, idx, window=window, impl="cuda")
+    _assert_close_by_rms(got, decode_attention_ref(q, k, v, idx,
+                                                   window=window),
+                         DECODE_MAIN_TOLERANCE, DECODE_MAIN_RMS_LIMIT)
 
 
 @pytest.mark.cuda

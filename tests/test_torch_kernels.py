@@ -5,6 +5,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import functools  # noqa: E402
+
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -13,15 +15,21 @@ from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.models import mamba2 as jax_mamba  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
+    NSPLIT,
     decode_attention,
-    splits,
+    split_ranges,
 )
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.kernels.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    decode_attention_ref,
+    flash_attention_ref,
+    ssd_scan_ref,
+)
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.models import mamba2 as port_mamba  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
     DECODE_CASES,
+    DECODE_CORNER_CASES,
     DECODE_MAIN_CASE,
     DECODE_MAIN_RMS_LIMIT,
     DECODE_MAIN_TOLERANCE,
@@ -31,10 +39,12 @@ from repro_torch.kernels.cases import (  # noqa: E402
     MAIN_TOLERANCE,
     RAGGED_CASES,
     SSD_CASES,
+    SSD_CORNER_CASES,
     SSD_MAIN_CASE,
     SSD_MAIN_RMS_LIMIT,
     SSD_MAIN_TOLERANCE,
     SSD_RAGGED_CASES,
+    SSD_STATE_RMS_LIMIT,
     TENSOR_CORE_CASES,
     case_id,
     decode_case_id,
@@ -231,8 +241,8 @@ def test_decode_attention_matches_jax(case):
                                    **tolerance(dtype))
 
 
-@pytest.mark.parametrize("case", DECODE_RAGGED_CASES + [DECODE_MAIN_CASE],
-                         ids=decode_case_id)
+@pytest.mark.parametrize("case", DECODE_RAGGED_CASES + DECODE_CORNER_CASES
+                         + [DECODE_MAIN_CASE], ids=decode_case_id)
 def test_decode_attention_ragged_and_main_shapes(case):
     B, Hq, Hkv, S, D, idx, window, dtype = case
     (jq, jk, jv), (q, k, v) = _decode_inputs(B, Hq, Hkv, S, D, dtype, seed=1)
@@ -271,12 +281,108 @@ def test_decode_reads_model_cache_layout_and_tensor_index():
                                atol=0.0, rtol=0.0)
 
 
-def test_decode_splits_cover_the_cache():
-    for B, Hkv, S in ((1, 8, 2048), (2, 2, 512), (1, 2, 200), (4, 16, 33),
-                      (1, 1, 1)):
-        split_len, nsplit = splits(B, Hkv, S, 132)
-        assert split_len % 32 == 0 and split_len * nsplit >= S
-        assert split_len * (nsplit - 1) < S
+@pytest.mark.parametrize("index,S,window", [
+    (1040, 2048, None), (0, 256, None), (255, 256, None), (5, 2048, None),
+    (1500, 2048, 40), (70, 96, 40), (3000, 2048, None), (0, 1, None)])
+def test_decode_splits_cover_the_cache(index, S, window):
+    """The kernel's rule: the live slots [max(0, index - window + 1),
+    min(index, S - 1)] are cut into ``nsplit`` shares of equal length (the
+    last ones shorter or empty), which together hold each live slot once,
+    in order; at the main shape every block of a cluster has work."""
+    lo = max(0, index - window + 1) if window else 0
+    hi = min(index, S - 1)
+    for nsplit in (1, 8, NSPLIT):
+        ranges = split_ranges(index, S, window, nsplit)
+        assert len(ranges) == nsplit
+        assert [p for a, b in ranges for p in range(a, b)] == list(
+            range(lo, hi + 1))
+        share = -(-(hi - lo + 1) // nsplit)
+        assert all(b - a <= share for a, b in ranges)
+    _, _, _, S, _, index, window, _ = DECODE_MAIN_CASE
+    assert all(b - a > 0 for a, b in split_ranges(index, S, window))
+
+
+def _decode_split_emulation(q, k, v, index, window, dtype=torch.float64):
+    """The kernel's arithmetic on the CPU: the live slots in NSPLIT shares
+    (``split_ranges``); each share in passes of at most 64 KB of K and V,
+    with an online softmax (m starting at -1e30); the shares merged as the
+    cluster merges them, the normaliser floored at 1e-30; all of it in
+    ``dtype`` (the kernel's fp64), rounded to fp32 and then to q's dtype.
+    q [B, Hq, D], k/v [B, Hkv, S, D] -> q's dtype."""
+    B, Hq, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    cap = min(-(-S // NSPLIT), 65536 // (2 * D * q.element_size()))
+    qf = q.to(dtype).reshape(B, Hkv, G, D)
+    kf, vf = k.to(dtype), v.to(dtype)
+    parts = []
+    for s0, s1 in split_ranges(index, S, window):
+        m = torch.full((B, Hkv, G, 1), -1e30, dtype=dtype)
+        l = torch.zeros((B, Hkv, G, 1), dtype=dtype)
+        acc = torch.zeros((B, Hkv, G, D), dtype=dtype)
+        for p0 in range(s0, s1, cap):
+            p1 = min(p0 + cap, s1)
+            sc = torch.einsum("bhgd,bhkd->bhgk", qf, kf[:, :, p0:p1]) \
+                * D ** -0.5
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            p = torch.exp(sc - m_new)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + p @ vf[:, :, p0:p1]
+            m = m_new
+        parts.append((m, l, acc))
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    L = sum(torch.exp(m - M) * l for m, l, _ in parts)
+    out = sum(torch.exp(m - M) * acc for m, _, acc in parts)
+    return (out / L.clamp_min(1e-30)).reshape(B, Hq, D).float().to(q.dtype)
+
+
+@pytest.mark.parametrize("case", DECODE_CASES + DECODE_RAGGED_CASES
+                         + DECODE_CORNER_CASES + [DECODE_MAIN_CASE],
+                         ids=decode_case_id)
+def test_decode_split_and_merge_emulation_matches_plain_version(case):
+    """The kernel's split of the live slots by ``index`` and its merge,
+    emulated in fp64 as the kernel runs it, against the plain version (at
+    the main shape at DECODE_MAIN_TOLERANCE and DECODE_MAIN_RMS_LIMIT)."""
+    B, Hq, Hkv, S, D, idx, window, dtype = case
+    (_, _, _), (q, k, v) = _decode_inputs(B, Hq, Hkv, S, D, dtype, seed=6)
+    got = _decode_split_emulation(q, k, v, idx, window).float()
+    want = decode_attention_ref(q, k, v, idx, window=window).float()
+    if case == DECODE_MAIN_CASE:
+        torch.testing.assert_close(got, want, **DECODE_MAIN_TOLERANCE)
+        assert float((got - want).square().mean().sqrt()) <= \
+            DECODE_MAIN_RMS_LIMIT * float(want.square().mean().sqrt())
+    else:
+        torch.testing.assert_close(got, want, **tolerance(dtype))
+
+
+def _decode_main_rms(seed: int, dtype) -> float:
+    """rms error over rms ref of the split emulation in ``dtype`` at
+    DECODE_MAIN_CASE on draw ``seed``, after checking
+    DECODE_MAIN_TOLERANCE."""
+    B, Hq, Hkv, S, D, idx, window, in_dtype = DECODE_MAIN_CASE
+    (_, _, _), (q, k, v) = _decode_inputs(B, Hq, Hkv, S, D, in_dtype,
+                                          seed=seed)
+    got = _decode_split_emulation(q, k, v, idx, window, dtype).float()
+    want = decode_attention_ref(q, k, v, idx, window=window).float()
+    torch.testing.assert_close(got, want, **DECODE_MAIN_TOLERANCE)
+    return float((got - want).square().mean().sqrt()
+                 / want.square().mean().sqrt())
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_decode_main_case_emulation_holds_over_draws(seed):
+    """The kernel's fp64 arithmetic meets DECODE_MAIN_RMS_LIMIT on every
+    draw, not on a lucky one."""
+    assert _decode_main_rms(seed, torch.float64) <= DECODE_MAIN_RMS_LIMIT
+
+
+def test_decode_main_rms_limit_breaks_fp32_arithmetic_on_some_draw():
+    """In fp32 the same split and merge round a bf16 output one ulp away
+    from the plain version's on some draws, which alone reads an rms over
+    DECODE_MAIN_RMS_LIMIT: the reason the kernel computes in fp64."""
+    readings = [_decode_main_rms(seed, torch.float32) for seed in range(12)]
+    assert max(readings) > DECODE_MAIN_RMS_LIMIT
 
 
 # ---------------------------------------------------------------------------
@@ -318,7 +424,8 @@ def test_ssd_scan_matches_jax(case):
         assert max_ratio(y.float().numpy(), pallas) < ssd_limit(dtype)
 
 
-@pytest.mark.parametrize("case", SSD_RAGGED_CASES, ids=ssd_case_id)
+@pytest.mark.parametrize("case", SSD_RAGGED_CASES + SSD_CORNER_CASES,
+                         ids=ssd_case_id)
 def test_ssd_scan_ragged_sequence(case):
     b, S, H, P, N, chunk, dtype = case
     jin, tin, raw = _ssd_inputs(b, S, H, P, N, dtype, seed=1)
@@ -358,9 +465,14 @@ def test_cuda_impl_on_cpu_raises_for_every_kernel(kernel):
     assert (decode_attention.launches, ssd_scan.launches) == launches
 
 
-@pytest.mark.parametrize("bad", ["q", "kv", "heads", "window"])
+@pytest.mark.parametrize("bad", ["q", "kv", "heads", "window",
+                                 "bf16_head_dim", "head_dim"])
 def test_decode_wrapper_rejects_bad_inputs(bad):
-    (_, _, _), (q, k, v) = _decode_inputs(1, 4, 2, 64, 64, "float32")
+    """Among the shapes refused on every device: a bf16 head dim that is
+    not a multiple of 8 (16-byte copies) and one above 128."""
+    D = {"bf16_head_dim": 60, "head_dim": 136}.get(bad, 64)
+    dtype = "bfloat16" if bad == "bf16_head_dim" else "float32"
+    (_, _, _), (q, k, v) = _decode_inputs(1, 4, 2, 64, D, dtype)
     if bad == "q":
         q = q[:, :, None]
     elif bad == "kv":
@@ -420,3 +532,121 @@ def test_ssd_main_limits_catch_a_wrong_carry(slow):
     assert passes(chunked(1.0))
     wrong = chunked(0.99)
     assert max_ratio(wrong, want) < ssd_limit(dtype) and not passes(wrong)
+
+
+def _bf16_terms(t: torch.Tensor, terms: int) -> torch.Tensor:
+    """fp32 ``t`` as the sum of ``terms`` bf16 values: bf16(t), then
+    bf16 of what is left, ..."""
+    out, rest = torch.zeros_like(t), t
+    for _ in range(terms):
+        part = rest.to(torch.bfloat16).float()
+        out, rest = out + part, rest - part
+    return out
+
+
+def _ssd_tensor_core_emulation(x, dt, A, B, C, chunk: int, terms: int = 3):
+    """The chunk-parallel kernel's order and rounding on the CPU: per chunk
+    the cumulative dA (summed in fp64, kept as an fp32 hi + lo pair), the
+    chunk's own state, the recurrence over chunks in fp32, and the outputs
+    (C . B^T exact in fp32; the decay-weighted scores, exp(cs_last - cs_j)
+    dt_j x_j and the entering state h, the fp32 operands of the
+    tensor-core products, as ``terms`` bf16 terms; the kernel uses 3).
+    Returns (y in x's dtype, the fp32 final state)."""
+    b, S, H, P = x.shape
+    xf, dtf, Af, Bf, Cf = (t.float() for t in (x, dt, A, B, C))
+    h = torch.zeros((b, H, P, B.shape[-1]))
+    ys = []
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, min(c0 + chunk, S))
+        cl = sl.stop - c0
+        d = dtf[:, sl]                                       # [b, cl, H]
+        cs = torch.cumsum((d * Af).double(), dim=1)          # in fp64,
+        hi = cs.float()                                      # kept as
+        lo = (cs - hi.double()).float()                      # hi + lo
+        w = torch.exp((hi[:, -1:] - hi) + (lo[:, -1:] - lo)) * d
+        own = torch.einsum("bjhp,bjn->bhpn",
+                           _bf16_terms(xf[:, sl] * w[..., None], terms),
+                           Bf[:, sl])
+        scores = torch.einsum("bin,bjn->bij", Cf[:, sl], Bf[:, sl])
+        live = torch.tril(torch.ones((cl, cl), dtype=torch.bool))
+        weighted = torch.where(
+            live[None, :, :, None],
+            scores[..., None] * (torch.exp((hi[:, :, None] - hi[:, None])
+                                           + (lo[:, :, None] - lo[:, None]))
+                                 * d[:, None]), torch.zeros(()))
+        y = torch.einsum("bijh,bjhp->bihp", _bf16_terms(weighted, terms),
+                         xf[:, sl])
+        y = y + torch.exp(hi + lo)[..., None] * torch.einsum(
+            "bin,bhpn->bihp", Cf[:, sl], _bf16_terms(h, terms))
+        h = torch.exp(hi[:, -1] + lo[:, -1])[..., None, None] * h + own
+        ys.append(y)
+    return torch.cat(ys, dim=1).to(x.dtype), h
+
+
+@functools.lru_cache(maxsize=None)
+def _ssd_case(case, seed: int, slow: bool = False) -> tuple:
+    """Inputs of an SSD case (as ``_ssd_inputs``; with ``slow``, dt
+    log-uniform in [1e-3, 1e-1]) and the plain scan's y and state."""
+    b, S, H, P, N, chunk, dtype = case
+    jin, tin, raw = _ssd_inputs(b, S, H, P, N, dtype, seed)
+    if slow:
+        rng = np.random.default_rng(seed + 1)
+        tin[1] = torch.from_numpy(np.exp(rng.uniform(
+            np.log(1e-3), np.log(1e-1), (b, S, H))).astype(np.float32)).to(
+                tin[1].dtype)
+    return jin, tin, raw, ssd_scan_ref(*tin)
+
+
+def _rms_ratio(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).square().mean().sqrt()
+                 / want.square().mean().sqrt())
+
+
+@pytest.mark.parametrize("slow", [False, True], ids=["jax_dt", "slow_decay"])
+@pytest.mark.parametrize("terms", [3, 2, 1],
+                         ids=["three_terms", "hi_lo", "bf16"])
+def test_ssd_tensor_core_rounding_meets_main_limits_only_with_split(terms,
+                                                                    slow):
+    """At the main shape the kernel's rounding (fp32 operands in three bf16
+    terms) passes SSD_MAIN_TOLERANCE, SSD_MAIN_RMS_LIMIT and
+    SSD_STATE_RMS_LIMIT against the plain scan; hi + lo passes with less
+    room (y is rounded to bf16, which turns a relative difference d into
+    roundings flipped at an rms of about sqrt(d) ulp); the fp32 operands
+    rounded to bf16 alone fail both rms limits.  ``pytest -s`` prints the
+    readings."""
+    *_, chunk, _ = SSD_MAIN_CASE
+    _, tin, _, (y_ref, s_ref) = _ssd_case(SSD_MAIN_CASE, 4, slow)
+    y, state = _ssd_tensor_core_emulation(*tin, chunk, terms)
+    y_rms, s_rms = _rms_ratio(y, y_ref), _rms_ratio(state, s_ref)
+    atol = float(((y.float() - y_ref.float()).abs()
+                  - SSD_MAIN_TOLERANCE["rtol"] * y_ref.float().abs()).max())
+    print(f"K3 emulation, {terms} bf16 terms, {'slow' if slow else 'JAX'} "
+          f"dt: y rms {y_rms:.3e} (limit {SSD_MAIN_RMS_LIMIT}), least atol "
+          f"{atol:.3e} (limit {SSD_MAIN_TOLERANCE['atol']}), state rms "
+          f"{s_rms:.3e} (limit {SSD_STATE_RMS_LIMIT})")
+    if terms > 1:
+        torch.testing.assert_close(y.float(), y_ref.float(),
+                                   **SSD_MAIN_TOLERANCE)
+        assert y_rms <= SSD_MAIN_RMS_LIMIT and s_rms <= SSD_STATE_RMS_LIMIT
+    else:
+        assert y_rms > SSD_MAIN_RMS_LIMIT and s_rms > SSD_STATE_RMS_LIMIT
+
+
+@pytest.mark.parametrize("case", SSD_CASES + SSD_RAGGED_CASES
+                         + SSD_CORNER_CASES, ids=ssd_case_id)
+def test_ssd_tensor_core_emulation_matches_jax(case):
+    """The chunk-parallel order with the kernel's rounding, at the case's
+    own chunk (a short last chunk included), against the JAX oracle and,
+    where S divides into chunks, the JAX model's ``ssd_chunked`` (y at the
+    JAX limit, the fp32 final state at the fp32 one)."""
+    b, S, H, P, N, chunk, dtype = case
+    jin, tin, raw, _ = _ssd_case(case, 1)
+    y, state = _ssd_tensor_core_emulation(*tin, chunk)
+    want = jax_ref.ssd_scan_ref(jin[0], jin[1], jnp.asarray(raw[2]), *jin[3:])
+    assert max_ratio(y.float().numpy(), want) < ssd_limit(dtype)
+    if S % chunk == 0:
+        y_model, s_model = jax_mamba.ssd_chunked(
+            *(jnp.asarray(t.float().numpy()) for t in tin), chunk=chunk)
+        assert max_ratio(y.float().numpy(), y_model) < ssd_limit(dtype)
+        assert max_ratio(state.numpy(), s_model) < ssd_limit("float32")

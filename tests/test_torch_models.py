@@ -302,6 +302,28 @@ def test_mamba_function_matches_jax(fn):
     np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
 
 
+def test_mamba_scan_chunk_on_kernel_route_is_the_configs(monkeypatch):
+    """For an odd S the JAX rule halves the chunk down to 1; the kernel
+    masks a short last chunk, so its route gets the config's chunk as it
+    is.  The chunk handed to ``ops.ssd_scan`` is recorded, not launched."""
+    cfg = get_smoke_config("mamba2-370m")
+    _, _, params = _mamba_setup()
+    seen = []
+
+    def record(x, dt, A, B, C, *, chunk, impl):
+        seen.append(chunk)
+        b, S, H, P = x.shape
+        return (torch.zeros_like(x),
+                torch.zeros((b, H, P, B.shape[-1]), dtype=torch.float32))
+
+    monkeypatch.setattr(mamba.ops, "ssd_scan", record)
+    x = torch.randn((1, 1025, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(0))
+    mamba.mamba_forward(params, cfg, x, impl="cuda")
+    assert seen == [cfg.ssm.chunk_size]
+    assert mamba._chunk(cfg.ssm.chunk_size, 1025) == 1
+
+
 @pytest.mark.parametrize("S", [40, 2])
 def test_mamba_prefill_cache_matches_jax(S):
     """The conv cache (zero-padded when S < d_conv - 1) and the final SSM

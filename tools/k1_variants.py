@@ -80,12 +80,16 @@ def sass_summary(lib: Path) -> list:
     return lines
 
 
-def time_ms(fn, reps: int = 30) -> float:
+def time_ms(fn, reps: int = 30, flush=None) -> float:
+    """Median CUDA-event time of ``fn`` after warm-up; ``flush()`` runs
+    before each timed call, outside the timing."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush()
         torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
