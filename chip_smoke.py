@@ -25,7 +25,9 @@ phase prints its wall time.
    main path's shape it times the kernel, its plain version and
    ``scaled_dot_product_attention`` (a yardstick the port never calls)
    with CUDA events, prints the TFLOP/s of both, and computes the least
-   time the card could take.
+   time the card could take.  The batched path's shapes (BATCHED_MAIN_CASES:
+   8 rows at S 1024 and 256) are held at the same limits and timed the same
+   way.
 4. K3 (SSD scan) against its plain version (the token recurrence): the JAX
    package's SSD_CASES, ragged ones and the corners of the chunk-parallel
    kernel's tiles (SSD_CORNER_CASES), y with max error over max |ref|
@@ -39,7 +41,9 @@ phase prints its wall time.
    fail them while it passes the JAX one.  It prints the readings, times
    kernel and plain version (no single PyTorch call computes this
    function), and times the kernel at S 1025 (chunk 256, a one-token last
-   chunk), which may take at most 1.2x its time at S 1024.
+   chunk), which may take at most 1.2x its time at S 1024.  The batched
+   path's shape (SSD_BATCHED_MAIN_CASE, b 8) is held at the main limits and
+   timed too.
 5. K2 (decode attention) against its plain version: DECODE_CASES, ragged
    ones and the corners of its split (DECODE_CORNER_CASES; 2e-5 in fp32,
    5e-2 in bf16), stale slots past ``index`` set to +-99, and qwen3-4b's
@@ -73,7 +77,26 @@ phase prints its wall time.
    8; its first decoded logits are held against ``forward``'s, and the
    forward over 1025 tokens (chunk 256 with a one-token last chunk) is
    timed beside the one over 1024.
-9. the card line again, one ``{"kernels": [...]}`` line, and last
+9. batched and open-loop serving at full width: qwen3-4b and mamba2-370m,
+   each on 4 stages under ODIN (alpha 3), serve 32 queries of bimodal
+   length (256 or 1024 tokens, a quarter long), bursty arrivals calibrated
+   from a closed-loop probe, continuous batching (buckets pow2:256:1024,
+   up to 8 rows), with a 3x slowdown on stage 1 for queries 8-20.  Every
+   query must be served, ODIN must rebalance and move blocks off stage 1,
+   batches must form and at least one query must join a batch in flight,
+   every warmed shape must lie in the power-of-two rows x used bucket
+   edges family, a second serve must need no warm-up, and the kernel's
+   launches must equal the block forwards the executor ran (dispatches x
+   blocks, plus each join's catch-up blocks), K1's all on its tensor-core
+   kernel.  It prints the summary, the dispatches, occupancy and padding,
+   the same arrivals served drained, unbatched and with exploration trials
+   riding batches, one drained burst of 8 long queries against the same 8
+   served one at a time (host clock and trace clock), one block at 8 x 1024
+   tokens (CUDA events), the card's busy share over a drained burst and
+   over one query (``torch.profiler``), and the logits of a batch's padded
+   rows against each query served alone, which must stay within
+   BATCHED_LOGITS_RMS_LIMIT.
+10. the card line again, one ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM data-sheet peaks: 989 TFLOP/s dense bf16 on the
@@ -101,6 +124,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import decode_attention as k2_lib  # noqa: E402
 from repro_torch.kernels import ssd_scan as k3_lib  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
+    BATCHED_MAIN_CASES,
     DECODE_CASES,
     DECODE_CORNER_CASES,
     DECODE_MAIN_CASE,
@@ -112,6 +136,7 @@ from repro_torch.kernels.cases import (  # noqa: E402
     MAIN_RMS_LIMIT,
     MAIN_TOLERANCE,
     RAGGED_CASES,
+    SSD_BATCHED_MAIN_CASE,
     SSD_CASES,
     SSD_CORNER_CASES,
     SSD_MAIN_CASE,
@@ -137,7 +162,11 @@ from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import blocks as blk  # noqa: E402
 from repro_torch.models import mamba2 as mamba_lib  # noqa: E402
 from repro_torch.models.layers import rms_norm  # noqa: E402
+from repro_torch.pipeline.executor import next_pow2  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
+from repro_torch.serving import engine as engine_lib  # noqa: E402
+from repro_torch.schedulers.runtime import RuntimeStep  # noqa: E402
+from repro_torch.workloads import make_lengths, resolve_batching  # noqa: E402
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM, dense bf16 tensor cores
 PEAK_FP32_FLOPS = 67e12       # H100 SXM, fp32 outside the tensor cores
@@ -187,6 +216,22 @@ PREFILL_RMS_LIMIT = 1e-3
 # the bf16 recurrence) against forward's at the same position (K3): about
 # 5x the 2.64e-2 measured (NVIDIA H100 80GB HBM3, 700 W).
 MAMBA_DECODE_RMS_LIMIT = 1.3e-1
+# Phase 9: batched and open-loop serving.  32 queries of bimodal length
+# (256 or 1024 tokens, p_long 0.25, seed 0), buckets pow2:256:1024, up to 8
+# rows a dispatch, continuous batching; bursty arrivals calibrated from a
+# 4-query closed-loop probe at SEQ tokens (tests/test_serving.py's kwargs);
+# a 3x slowdown on stage 1 for queries 8-20.
+BATCH_QUERIES, MAX_BATCH, BUCKETS = 32, 8, "pow2:256:1024"
+SHORT, LONG, P_LONG = 256, 1024, 0.25
+BATCH_SLOW_FROM, BATCH_SLOW_TO = 8, 21
+# A continuous dispatch's rows (padded to their bucket edge, one of them
+# joined mid-flight) against each query served alone: rms of the logits'
+# difference over the real positions, over the rms of the logits alone.
+# Both models read exactly 0 on an NVIDIA H100 80GB HBM3 at 700 W (the
+# rows are bit-equal); the limit admits the 2e-2 that one-ulp roundings
+# reach through 36 random bf16 blocks (the decode check's reading) and
+# fails a row that reads its padding or another row (order 1).
+BATCHED_LOGITS_RMS_LIMIT = 1e-1
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -439,6 +484,39 @@ def phase_kernel_check() -> dict:
             f" TFLOP/s achieved: kernel {flops / kernel_ms / 1e9:.1f}, "
             f"scaled_dot_product_attention {flops / library_ms / 1e9:.1f}; "
             f"the same products at the fp32 peak: {fp32_ms:.4f} ms)")
+
+    # The batched path: a formed dispatch of 8 rows at a bucket edge.
+    for case in BATCHED_MAIN_CASES:
+        B, Hq, Hkv, S, D, _, _, dtype = case
+        q = randn(gen, (B, Hq, S, D), dtype)
+        k = randn(gen, (B, Hkv, S, D), dtype)
+        v = randn(gen, (B, Hkv, S, D), dtype)
+        before = route_counts()["tensor_core_launches"]
+        got = compare(ops.flash_attention(q, k, v, impl="cuda"),
+                      flash_attention_ref(q, k, v), MAIN_TOLERANCE,
+                      f"batched B={B} S={S}", MAIN_RMS_LIMIT)
+        if route_counts()["tensor_core_launches"] != before + 1:
+            raise AssertionError(f"the batched shape {case} did not run on "
+                                 f"the tensor-core kernel")
+        kernel_ms = time_ms(lambda: ops.flash_attention(q, k, v,
+                                                        impl="cuda"))
+        plain_ms = time_ms(lambda: flash_attention_ref(q, k, v), reps=10)
+        library_ms = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+        bound_ms, bound_by = attention_bound(B, Hq, Hkv, S, D, True, 2)
+        flops = 4 * B * Hq * D * (S * (S + 1) // 2)
+        main[(B, S)] = dict(max_abs_err=got["max_abs_err"], ms=kernel_ms,
+                            plain_ms=plain_ms, library_ms=library_ms,
+                            bound_ms=bound_ms, bound_by=bound_by)
+        log(f"  K1 batched {case}: max |err| {got['max_abs_err']:.3e}, rms "
+            f"err / rms ref {got['rms_err'] / got['rms_ref']:.3e} (limits "
+            f"{MAIN_TOLERANCE}, rms {MAIN_RMS_LIMIT})  kernel_ms "
+            f"{kernel_ms:.4f}  plain_ms {plain_ms:.4f}  library_ms "
+            f"{library_ms:.4f}  bound_ms {bound_ms:.5f} ({bound_by}; "
+            f"{flops / 1e9:.2f} GFLOP; TFLOP/s achieved: kernel "
+            f"{flops / kernel_ms / 1e9:.1f}, scaled_dot_product_attention "
+            f"{flops / library_ms / 1e9:.1f})")
     return main
 
 
@@ -517,8 +595,35 @@ def phase_ssd_check() -> dict:
         f"{grid_line(k3_lib.launch_shape(b, S, H, P, N, chunk, x.dtype))}, "
         f"on {torch.cuda.get_device_properties(0).multi_processor_count} "
         f"SMs")
+
+    # The batched path: a formed dispatch of 8 rows of 1024 tokens.
+    b, S, H, P, N, chunk, dtype = SSD_BATCHED_MAIN_CASE
+    for slow in (True, False):           # the times below take JAX's draw
+        xbc = randn(gen, (b, S, H * P + 2 * N), dtype)
+        xb = xbc[..., :H * P].reshape(b, S, H, P)
+        _, dtb, Ab, _, _ = ssd_inputs(gen, b, S, H, P, N, dtype, slow)
+        Bb, Cb = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+        gy, _, _ = check_ssd_main(
+            f"K3 batched, {'slow' if slow else 'JAX'} dt", xb, dtb, Ab, Bb,
+            Cb, chunk, dtype)
+        errs.append(gy["max_abs_err"])
+    b_ms = time_ms(lambda: ops.ssd_scan(xb, dtb, Ab, Bb, Cb, chunk=chunk,
+                                        impl="cuda"))
+    b_plain_ms = time_ms(lambda: ssd_scan_ref(xb, dtb, Ab, Bb, Cb), reps=5,
+                         warmup=1)
+    b_flops, b_nbytes = ssd_work(b, S, H, P, N, chunk, 2)
+    b_bound_ms, b_bound_by = bound(b_flops, b_nbytes, PEAK_BF16_FLOPS)
+    log(f"  K3 batched {SSD_BATCHED_MAIN_CASE}: kernel_ms {b_ms:.4f} "
+        f"({b_ms / kernel_ms:.2f}x b 1)  plain_ms {b_plain_ms:.4f}  "
+        f"library_ms none  bound_ms {b_bound_ms:.5f} ({b_bound_by}; "
+        f"{b_nbytes / 1e6:.2f} MB, {b_flops / 1e9:.3f} GFLOP; "
+        f"{b_nbytes / b_ms / 1e6:.1f} GB/s and {b_flops / b_ms / 1e9:.2f} "
+        f"TFLOP/s achieved; {ssd_executed(b, S, H, chunk) / b_ms / 1e9:.2f}"
+        f" TFLOP/s executed); "
+        f"{grid_line(k3_lib.launch_shape(b, S, H, P, N, chunk, xb.dtype))}")
     return dict(max_abs_err=max(errs), ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                batched_ms=b_ms)
 
 
 def grid_line(shapes: dict) -> str:
@@ -1027,6 +1132,299 @@ def phase_cached(qcfg, qparams, mcfg, mparams) -> dict:
     return out
 
 
+def batch_schedule(q: int) -> list:
+    slow = [1.0] * 4
+    if BATCH_SLOW_FROM <= q < BATCH_SLOW_TO:
+        slow[SLOW_EP] = SLOW_FACTOR
+    return slow
+
+
+class BlockForwards:
+    """Counts, while active, the block forwards the executor ``ex`` runs
+    (the blocks of every ``stage_fn`` call), the dispatches (formed
+    dispatches finished and queries executed alone) and each join's
+    catch-up blocks (the blocks of the fused launch over the joiner)."""
+
+    def __init__(self, ex):
+        self.ex = ex
+        self.blocks = self.dispatches = self.joins = self.catchup = 0
+
+    def __enter__(self):
+        ex, counts = self.ex, self
+        stage_fn = ex.stage_fn
+        builder, live = engine_lib._LiveDispatchBuilder, \
+            engine_lib._LiveQueryExecutor
+        self._saved = (builder.join, builder.finish, live.execute)
+        join, finish, execute = self._saved
+
+        def counted_stage_fn(x, positions, lo, hi):
+            counts.blocks += hi - lo
+            return stage_fn(x, positions, lo, hi)
+
+        def counted_join(b, q):
+            counts.joins += 1
+            counts.catchup += b._bounds[b._stage - 1][1]
+            return join(b, q)
+
+        def counted_finish(b):
+            counts.dispatches += 1
+            return finish(b)
+
+        def counted_execute(lv, q, step):
+            counts.dispatches += 1
+            return execute(lv, q, step)
+
+        ex.stage_fn = counted_stage_fn
+        builder.join, builder.finish = counted_join, counted_finish
+        live.execute = counted_execute
+        return self
+
+    def __exit__(self, *exc):
+        del self.ex.stage_fn
+        builder, live = engine_lib._LiveDispatchBuilder, \
+            engine_lib._LiveQueryExecutor
+        builder.join, builder.finish, live.execute = self._saved
+        return False
+
+
+def load_line(trace) -> str:
+    s = trace.summary()
+    return (f"mean queue delay {s['mean_queue_delay_s']:.4f} s, p99 "
+            f"latency {s['p99_latency_s']:.4f} s, achieved load "
+            f"{s['achieved_load_qps']:.2f} of {s['offered_load_qps']:.2f} q/s "
+            f"offered, mean occupancy {s['mean_batch_occupancy']:.3f}")
+
+
+def batched_logits_ratio(eng, cfg, rng) -> list:
+    """One continuous dispatch through the engine's builder, two queries
+    formed (256 and 200 tokens) and one (230 tokens) joining after stage 1,
+    all right-padded to the 256-token bucket edge: per row, rms(batched
+    logits - the query's logits alone) over its real positions, over the
+    rms of the logits alone."""
+    lengths = np.array([256, 200, 230])
+    queries = [torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, int(n))),
+                               device="cuda") for n in lengths]
+    live = eng.query_executor(queries, lambda q: [1.0] * 4)
+    former = resolve_batching("continuous", max_batch=MAX_BATCH,
+                              buckets=BUCKETS, seq=LONG)
+    live.configure_batching(former, lengths, former.padded_lengths(lengths))
+    live.begin_query(0)
+    builder = live.begin_dispatch(0, RuntimeStep(eng.config, serial=False))
+    builder.add(0)
+    builder.add(1)
+    builder.next_boundary()
+    builder.join(2)
+    builder.finish()
+    ratios = []
+    with torch.inference_mode():
+        logits = eng.executor.head(builder._x)
+        for i, n in enumerate(lengths):
+            alone, _ = eng.executor.run_query(queries[i], eng.config)
+            ratios.append(rel_rms(logits[i, :n], alone[0]))
+            if not bool(torch.isfinite(logits[i, :n]).all()):
+                raise AssertionError(f"row {i} of the batch has non-finite "
+                                     f"logits")
+    return ratios
+
+
+def device_busy(fn) -> tuple:
+    """(host-clock seconds of ``fn``, synchronised; seconds the card spent
+    in kernels meanwhile, from ``torch.profiler``'s device times)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(getattr(ev, "device_time_total", None)
+               or getattr(ev, "cuda_time_total", 0)
+               for ev in prof.key_averages())
+    return wall, busy / 1e6
+
+
+def serve_batched(cfg, params, counter, kernel: str,
+                  kernel_ms: float) -> dict:
+    """Phase 9 for one model: bursty, continuous-batched traffic under ODIN
+    (see the module docstring)."""
+    rng = np.random.default_rng(3)
+    lengths = make_lengths("bimodal", short=SHORT, long=LONG, p_long=P_LONG,
+                           seed=0).sample(BATCH_QUERIES)
+    queries = [torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, int(n))),
+                               device="cuda") for n in lengths]
+    eng = ServingEngine(cfg, params, num_eps=4, scheduler="odin", alpha=3,
+                        device="cuda")
+    ex = eng.executor
+    ex.warmup(1, SEQ)
+    probe = eng.serve([torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                    (1, SEQ)), device="cuda")
+                       for _ in range(4)], lambda q: [1.0] * 4)
+    service = float(probe.service_latencies[1:].mean())
+    eng.reset_policy()
+    wl = dict(burst_rate=8.0 / service, base_rate=0.3 / service,
+              mean_burst=60 * service, mean_gap=15 * service, seed=0)
+    kw = dict(workload="bursty", workload_kwargs=wl, max_batch=MAX_BATCH,
+              batching="continuous", buckets=BUCKETS)
+    former = resolve_batching("continuous", max_batch=MAX_BATCH,
+                              buckets=BUCKETS, seq=LONG)
+    edges = sorted({int(e) for e in former.padded_lengths(lengths)})
+    # The serve warms this set itself; warmed here, its launches stay out
+    # of the counted run.
+    ex.warm_buckets(edges, MAX_BATCH)
+
+    start_config = eng.config
+    reset_counts(counter)
+    with BlockForwards(ex) as fw:
+        t0 = time.perf_counter()
+        trace = eng.serve(queries, batch_schedule, **kw)
+        wall = time.perf_counter() - t0
+    counts = {name: n for name, n in vars(counter).items()
+              if name.endswith("launches")}
+    launches = counts.pop("launches")
+    s = trace.summary()
+    log(f"  {cfg.name}: probe service {1e3 * service:.2f} ms a 1024-token "
+        f"query; bursty burst_rate {wl['burst_rate']:.2f} q/s, base_rate "
+        f"{wl['base_rate']:.3f} q/s, mean_burst {wl['mean_burst']:.3f} s, "
+        f"mean_gap {wl['mean_gap']:.3f} s; lengths {lengths.tolist()}")
+    log(f"  served {len(trace.latencies)} queries in {wall:.2f} s: "
+        f"{json.dumps(s)}")
+    log(f"  configs: {trace.configs}")
+    log(f"  dispatches {fw.dispatches}, joins {fw.joins} (catch-up blocks "
+        f"{fw.catchup}), block forwards {fw.blocks}, {kernel} launches "
+        f"{launches}" + (f", by route {counts}" if counts else "")
+        + f"; mean occupancy {s['mean_batch_occupancy']:.3f}, p99 "
+        f"{s['p99_batch_occupancy']:.1f}, padded_token_frac "
+        f"{s['padded_token_frac']:.4f}; rebalances {trace.num_rebalances}, "
+        f"trials {trace.total_trials}")
+    episode = trace.configs[BATCH_SLOW_FROM:BATCH_SLOW_TO]
+    checks = {
+        "every query served": len(trace.latencies) == BATCH_QUERIES,
+        "ODIN rebalanced": trace.num_rebalances >= 1,
+        "blocks moved off stage 1": min(c[SLOW_EP] for c in episode)
+        < start_config[SLOW_EP],
+        "every config conserves blocks": all(
+            sum(c) == cfg.num_blocks for c in trace.configs),
+        "batches formed": s["mean_batch_occupancy"] > 1.0,
+        "a query joined a batch in flight": fw.joins >= 1,
+        "only warm shapes": all(seq in edges and rows == next_pow2(rows)
+                                for rows, seq in ex._warmed),
+        "launches = block forwards = dispatches x blocks + catch-up":
+            launches == fw.blocks
+            == fw.dispatches * cfg.num_blocks + fw.catchup,
+    }
+    if counter is flash_attention:
+        checks["every K1 launch on the tensor cores"] = \
+            counts["cuda_core_launches"] == 0
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{cfg.name} batched serving: {failed}")
+    log(f"  warmed shapes {sorted(ex._warmed)}")
+
+    # A second serve over warm shapes must not warm anything.
+    def no_warmups(*a, **k):
+        raise AssertionError(f"warm-up requested in a warm serve: {a}")
+
+    eng.reset_policy()
+    ex.warmup = no_warmups
+    try:
+        again = eng.serve(queries, batch_schedule, **kw)
+    finally:
+        del ex.warmup
+    if len(again.latencies) != BATCH_QUERIES:
+        raise AssertionError("the second serve lost queries")
+    eng.reset_policy()
+    drain = eng.serve(queries, batch_schedule, **dict(kw, batching="drain"))
+    eng.reset_policy()
+    solo = eng.serve(queries, batch_schedule, workload="bursty",
+                     workload_kwargs=wl, max_batch=1)
+    eng.reset_policy()
+    riding = eng.serve(queries, batch_schedule,
+                       **dict(kw, explore_in_batch=True))
+    for name, tr in (("continuous", trace), ("continuous, again", again),
+                     ("drain", drain), ("max_batch=1", solo),
+                     ("continuous, trials riding batches", riding)):
+        log(f"  the same arrivals, {name}: {load_line(tr)}, serial_frac "
+            f"{tr.summary()['serial_frac']:.3f}")
+
+    # One drained burst of 8 long queries against the same 8 one at a time,
+    # all arriving at once, on a static split.
+    static = ServingEngine(cfg, params, num_eps=4, scheduler="none",
+                           executor=ex)
+    burst = [torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, LONG)),
+                             device="cuda") for _ in range(MAX_BATCH)]
+    at_once = dict(workload="trace", workload_kwargs=dict(
+        inter_arrivals=[0.0]))
+    walls, spans = {}, {}
+    for name, opts in (("solo", dict(max_batch=1)),
+                       ("drained", dict(batching="drain",
+                                        max_batch=MAX_BATCH,
+                                        buckets=BUCKETS)),
+                       ("drained, again", dict(batching="drain",
+                                               max_batch=MAX_BATCH,
+                                               buckets=BUCKETS)),
+                       ("solo, again", dict(max_batch=1))):
+        t0 = time.perf_counter()
+        tr = static.serve(burst, lambda q: [1.0] * 4, **at_once, **opts)
+        walls[name] = time.perf_counter() - t0
+        spans[name] = float(tr.completion_times.max()
+                            - tr.arrival_times.min())
+    # The trace's clock credits queries served one at a time with
+    # pipelined stages (the next starts when the bottleneck stage frees);
+    # on one card the stages run one after the other, so the host clock is
+    # the burst's real time.
+    # Where a drained dispatch's time goes: one block at 8 x LONG tokens
+    # (CUDA events), and the card's busy share over a drained burst and
+    # over one query served alone.
+    with torch.inference_mode():
+        x = params["embed"]["table"][torch.cat(burst)]
+        pos = torch.arange(LONG, device="cuda").expand(MAX_BATCH, LONG)
+        bp = blk.block_params(params["blocks"], 0)
+        block_ms = time_ms(lambda: blk.block_forward(bp, cfg, x, pos),
+                           reps=10)
+    del x
+    busy = {
+        "drained burst": device_busy(lambda: static.serve(
+            burst, lambda q: [1.0] * 4, **at_once, batching="drain",
+            max_batch=MAX_BATCH, buckets=BUCKETS)),
+        "one query alone": device_busy(lambda: static.serve(
+            burst[:1], lambda q: [1.0] * 4)),
+    }
+    log(f"  one block at {MAX_BATCH} x {LONG} tokens {block_ms:.3f} ms "
+        f"(CUDA events), of which {kernel} {kernel_ms:.4f} ms "
+        f"({100 * kernel_ms / block_ms:.0f}%); card busy (torch.profiler "
+        f"kernel time over the host clock): " + ", ".join(
+            f"{name} {b:.4f} of {w:.4f} s ({100 * b / w:.0f}%)"
+            for name, (w, b) in busy.items()))
+    log(f"  8 queries of {LONG} tokens arriving at once on "
+        f"{static.config}, host clock: drained burst {walls['drained']:.4f}"
+        f" / {walls['drained, again']:.4f} s, one at a time "
+        f"{walls['solo']:.4f} / {walls['solo, again']:.4f} s; the trace's "
+        f"last completion: drained {spans['drained']:.4f} / "
+        f"{spans['drained, again']:.4f} s, one at a time (pipelined "
+        f"stages) {spans['solo']:.4f} / {spans['solo, again']:.4f} s")
+
+    ratios = batched_logits_ratio(eng, cfg, rng)
+    log(f"  logits of a continuous dispatch with a join (rows of 256, 200 "
+        f"and 230 tokens padded to 256) against each query alone, rms|d|/"
+        f"rms|alone| over the real positions: "
+        f"{[f'{r:.3e}' for r in ratios]} (limit {BATCHED_LOGITS_RMS_LIMIT})")
+    if not max(ratios) <= BATCHED_LOGITS_RMS_LIMIT:
+        raise AssertionError(f"{cfg.name}: a batched row's logits differ "
+                             f"from the query's alone: {ratios}")
+    return dict(launches=launches, summary=s, walls=walls, ratios=ratios,
+                block_ms=block_ms, busy=busy)
+
+
+def phase_batched(qcfg, qparams, mcfg, mparams, k1_ms: float,
+                  k3_ms: float) -> dict:
+    """``k1_ms`` / ``k3_ms``: each kernel's time at its batched shape
+    (phases 3-4)."""
+    return {"qwen3-4b": serve_batched(qcfg, qparams, flash_attention, "K1",
+                                      k1_ms),
+            "mamba2-370m": serve_batched(mcfg, mparams, ssd_scan, "K3",
+                                         k3_ms)}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
@@ -1087,15 +1485,22 @@ def main() -> None:
                      phase_mamba, mcfg, mparams, k3["ms"])
     cached = phase("phase 8: the cached path (prefill, decode)",
                    phase_cached, qcfg, qparams, mcfg, mparams)
+    batched = phase("phase 9: batched and open-loop serving at full width",
+                    phase_batched, qcfg, qparams, mcfg, mparams,
+                    main_k1[(MAX_BATCH, LONG)]["ms"], k3["batched_ms"])
 
     k1 = main_k1[SEQ]
     k1 = dict(k1, max_abs_err=max(m["max_abs_err"] for m in main_k1.values()))
+    # Launches on the main paths: the closed-loop serve and the batched
+    # one for K1 and K3, the decode steps for K2.
     rows = [
         ("flash_attention", "flash_attention.py:96",
-         served["counts"]["tensor_core_launches"], k1),
+         served["counts"]["tensor_core_launches"]
+         + batched["qwen3-4b"]["launches"], k1),
         ("decode_attention", "decode_attention.py:78",
          cached["qwen3-4b"]["launches"], k2),
-        ("ssd_scan", "ssd_scan.py:71", served_m["launches"], k3),
+        ("ssd_scan", "ssd_scan.py:71",
+         served_m["launches"] + batched["mamba2-370m"]["launches"], k3),
     ]
     sources = {"flash_attention": "flash_attention_bf16"}
     kernels = [{

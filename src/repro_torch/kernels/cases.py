@@ -44,6 +44,11 @@ TENSOR_CORE_CASES = [
 # The main path: qwen3-4b's attention, q [1, 32, S, 128], k/v [1, 8, S, 128].
 MAIN_SEQS = (1024, 2048)
 MAIN_CASES = [(1, 32, 8, s, 128, True, None, "bfloat16") for s in MAIN_SEQS]
+# The batched path: a formed dispatch of 8 rows at the bucket edges of
+# chip_smoke.py's bimodal traffic (256 and 1024 tokens), held at the main
+# limits below.
+BATCHED_MAIN_CASES = [(8, 32, 8, s, 128, True, None, "bfloat16")
+                      for s in (1024, 256)]
 
 # Elementwise |got - want| <= atol + rtol |want|.  The JAX package's limits
 # hold for FLASH_CASES and RAGGED_CASES: bf16 keeps ~3 significant digits.
@@ -123,6 +128,9 @@ SSD_CORNER_CASES = [
 # The main path: one mamba2-370m block at S = 1024 (H 32, P 64, N 128,
 # the model's chunk of 256).
 SSD_MAIN_CASE = (1, 1024, 32, 64, 128, 256, "bfloat16")
+# The batched path: a formed dispatch of 8 rows of 1024 tokens, held at the
+# main limits below.
+SSD_BATCHED_MAIN_CASE = (8, 1024, 32, 64, 128, 256, "bfloat16")
 # There y's max |ref| is about 300 against an rms of about 14, so the JAX
 # bf16 limit (5e-2 of max |ref|) would pass an error of the rms's size: a
 # state carried across chunks scaled by 0.99 passes it.  At the main shape

@@ -84,9 +84,30 @@ class LocalPipelineExecutor:
         self._warmed.add((batch, seq))
 
     def ensure_warm(self, batch: int, seq: int) -> None:
-        """Warm the (batch, seq) input shape if not yet seen."""
+        """Warm the (batch, seq) input shape if not yet seen, so a batched
+        dispatch never measures a first-shape allocation as service
+        time."""
         if (batch, seq) not in self._warmed:
             self.warmup(batch, seq)
+
+    def warm_buckets(self, seq_buckets: Sequence[int],
+                     max_batch: int) -> None:
+        """Warm exactly the length-bucketed dispatch shapes.
+
+        Bucketed dispatch pads every batch to a power-of-two row count
+        and every query to its length-bucket edge, so the full shape set
+        is ``{1, 2, 4, .., next_pow2(max_batch)} x seq_buckets`` -- a
+        small closed set, keeping ``_warmed`` bounded however many
+        distinct raw ``(batch, seq)`` combinations the traffic offers.
+        """
+        rows, r = [], 1
+        cap = next_pow2(max_batch)
+        while r <= cap:
+            rows.append(r)
+            r *= 2
+        for seq in seq_buckets:
+            for b in rows:
+                self.ensure_warm(b, int(seq))
 
     # -- execution --------------------------------------------------------------
     @torch.inference_mode()
@@ -104,15 +125,22 @@ class LocalPipelineExecutor:
 
     def run_stages(self, x: torch.Tensor, positions: torch.Tensor,
                    config: Sequence[int], lo_stage: int, hi_stage: int,
-                   slowdowns: Optional[Sequence[float]] = None) -> tuple:
+                   slowdowns: Optional[Sequence[float]] = None,
+                   bounds: Optional[List[tuple]] = None) -> tuple:
         """Run stages ``[lo_stage, hi_stage)`` of ``config`` over ``x``.
 
-        Returns ``(x, times)`` where ``times[s]`` is the measured wall time
-        of stage ``lo_stage + s``.  ``slowdowns`` emulates co-located
-        interference per EP by stretching the measured stage time with a
-        sleep, physically delaying the pipeline.
+        The stage-granular entry point of continuous batching: a batch
+        can stop at any stage boundary, take newly arrived (embedded and
+        caught-up) rows along the batch axis, and resume with the same
+        ``stage_fn``.  Returns ``(x, times)`` where ``times[s]`` is the
+        measured wall time of stage ``lo_stage + s``.  ``slowdowns``
+        emulates co-located interference per EP by stretching the
+        measured stage time with a sleep, physically delaying the
+        pipeline.  ``bounds`` takes ``stage_bounds(config)`` from a caller
+        that runs one stage at a time and computed it once.
         """
-        bounds = stage_bounds(config)
+        if bounds is None:
+            bounds = stage_bounds(config)
         times = np.zeros(hi_stage - lo_stage)
         for s in range(lo_stage, hi_stage):
             lo, hi = bounds[s]

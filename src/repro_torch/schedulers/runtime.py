@@ -37,6 +37,9 @@ class RuntimeStep:
     config: List[int]          # configuration to process the query with
     serial: bool               # True = exploration trial (serial query)
     committed: bool = False    # a rebalancing phase committed at this step
+    #: Mesh assignment of the step; always ``None`` until the port has
+    #: mesh-sliced stages (ROADMAP item 6d).  The run loop compares it.
+    mesh: Optional[List[int]] = None
 
 
 class RebalanceRuntime:
@@ -56,6 +59,14 @@ class RebalanceRuntime:
     def exploring(self) -> bool:
         """True while a rebalancing phase is in progress."""
         return self.explorer is not None
+
+    def steady_poll_stable(self) -> bool:
+        """True when one steady ``poll`` answers for a whole chunk: the
+        policy declares ``steady_detect_stable`` (its ``detect`` is pure
+        under unchanged conditions).  The run loop's vectorized path asks
+        this; the port's policies do not declare it, so it polls every
+        query."""
+        return bool(getattr(self.policy, "steady_detect_stable", False))
 
     def steady_step(self) -> RuntimeStep:
         """A pipelined step on the committed config, without polling.

@@ -1,1 +1,1 @@
-from repro_torch.serving.engine import ServeTrace, ServingEngine  # noqa: F401
+from repro_torch.serving.engine import ServeMetrics, ServingEngine  # noqa: F401

@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
+    BATCHED_MAIN_CASES,
     DECODE_CASES,
     DECODE_CORNER_CASES,
     DECODE_MAIN_CASE,
@@ -26,6 +27,7 @@ from repro_torch.kernels.cases import (  # noqa: E402
     MAIN_RMS_LIMIT,
     MAIN_TOLERANCE,
     RAGGED_CASES,
+    SSD_BATCHED_MAIN_CASE,
     SSD_CASES,
     SSD_CORNER_CASES,
     SSD_MAIN_CASE,
@@ -51,7 +53,10 @@ from repro_torch.kernels.ref import (  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import blocks as blk  # noqa: E402
+from repro_torch.schedulers.runtime import RuntimeStep  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
+from repro_torch.serving import engine as engine_lib  # noqa: E402
+from repro_torch.workloads import resolve_batching  # noqa: E402
 
 
 def _inputs(shapes, dtype: str, seed: int = 0):
@@ -123,6 +128,23 @@ def test_kernel_matches_plain_version_at_main_path_shape(card, case):
                                   impl="cuda")
         want = flash_attention_ref(q, k, v, causal=causal, window=window)
         _assert_close_by_rms(got, want, MAIN_TOLERANCE, MAIN_RMS_LIMIT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BATCHED_MAIN_CASES, ids=case_id)
+def test_kernel_matches_plain_version_at_batched_main_shapes(card, case):
+    """A formed dispatch of 8 rows at a bucket edge, on the tensor-core
+    kernel, at the main limits."""
+    B, Hq, Hkv, S, D, causal, window, dtype = case
+    q, k, v = _inputs([(B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D)], dtype,
+                      seed=6)
+    n = flash_attention.tensor_core_launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              impl="cuda")
+    torch.cuda.synchronize()
+    assert flash_attention.tensor_core_launches == n + 1
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    _assert_close_by_rms(got, want, MAIN_TOLERANCE, MAIN_RMS_LIMIT)
 
 
 @pytest.mark.cuda
@@ -233,6 +255,18 @@ def test_ssd_kernel_matches_plain_version_at_main_path_shape(card, slow):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("slow", [False, True], ids=["jax_dt", "slow_decay"])
+def test_ssd_kernel_matches_plain_version_at_batched_main_shape(card, slow):
+    b, S, H, P, N, chunk, dtype = SSD_BATCHED_MAIN_CASE
+    ins = _ssd_inputs(b, S, H, P, N, dtype, seed=7, slow=slow)
+    y, state = ops.ssd_scan(*ins, chunk=chunk, impl="cuda")
+    y_ref, s_ref = ssd_scan_ref(*ins)
+    _assert_close_by_rms(y, y_ref, SSD_MAIN_TOLERANCE, SSD_MAIN_RMS_LIMIT)
+    assert max_ratio(state, s_ref) < ssd_limit("float32")
+    assert _rms(state - s_ref) <= SSD_STATE_RMS_LIMIT * _rms(s_ref)
+
+
+@pytest.mark.cuda
 def test_ssd_kernel_depends_on_chunk_only_through_rounding(card):
     ins = _ssd_inputs(1, 300, 4, 64, 128, "float32", seed=1)
     y1, s1 = ops.ssd_scan(*ins, chunk=256, impl="cuda")
@@ -327,3 +361,75 @@ def test_mamba_serving_runs_every_block_through_ssd_kernel(card):
     trace = eng.serve(queries, lambda q: [1.0, 1.0])
     assert ssd_scan.launches == cfg.num_layers * len(queries)
     assert all(sum(c) == cfg.num_blocks for c in trace.configs)
+
+
+def _dispatch_with_a_join(eng, queries, lengths):
+    """Drive one continuous dispatch through the engine's builder: queries
+    0 and 1 formed, query 2 joining after stage 1; returns the builder."""
+    live = eng.query_executor(queries, lambda q: [1.0] * eng.num_eps)
+    former = resolve_batching("continuous", max_batch=4,
+                              buckets="pow2:32:64", seq=64)
+    lengths = np.asarray(lengths)
+    live.configure_batching(former, lengths, former.padded_lengths(lengths))
+    live.begin_query(0)
+    builder = live.begin_dispatch(0, RuntimeStep(eng.config, serial=False))
+    builder.add(0)
+    builder.add(1)
+    assert builder.next_boundary() is not None
+    builder.join(2)
+    builder.finish()
+    return builder
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-370m"])
+def test_batched_padded_rows_equal_queries_alone_fp32(card, arch):
+    """On the card in fp32: each row of a continuous dispatch with a join,
+    right-padded to its bucket edge, gives on its real positions the
+    logits the query gives alone."""
+    cfg = get_smoke_config(arch)
+    params = Model(cfg).init_params(0, device="cuda")
+    eng = ServingEngine(cfg, params, num_eps=2, device="cuda")
+    rng = np.random.default_rng(8)
+    lengths = [40, 64, 50]
+    queries = [torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, n)),
+                               device="cuda") for n in lengths]
+    builder = _dispatch_with_a_join(eng, queries, lengths)
+    with torch.inference_mode():
+        logits = eng.executor.head(builder._x)
+        for i, n in enumerate(lengths):
+            alone, _ = eng.executor.run_query(queries[i], eng.config)
+            torch.testing.assert_close(logits[i, :n], alone[0], atol=1e-4,
+                                       rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_continuous_serve_on_card_with_a_join(card, monkeypatch):
+    """A continuous serve on the card: queries 1 microsecond apart, so the
+    second joins the first's dispatch at its first stage boundary; every
+    attention runs through K1, once per block forward the executor ran."""
+    cfg = get_smoke_config("qwen3-4b")
+    params = Model(cfg).init_params(0, device="cuda")
+    eng = ServingEngine(cfg, params, num_eps=2, device="cuda")
+    rng = np.random.default_rng(9)
+    queries = [torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                            (1, int(n))), device="cuda")
+               for n in rng.choice([40, 64], 12)]
+    joins, blocks = [], []
+    join = engine_lib._LiveDispatchBuilder.join
+    monkeypatch.setattr(engine_lib._LiveDispatchBuilder, "join",
+                        lambda self, q: (joins.append(q), join(self, q)))
+    stage_fn = eng.executor.stage_fn
+    monkeypatch.setattr(eng.executor, "stage_fn",
+                        lambda x, pos, lo, hi: (blocks.append(hi - lo),
+                                                stage_fn(x, pos, lo, hi))[1])
+    flash_attention.launches = 0
+    trace = eng.serve(queries, lambda q: [1.0, 1.0], workload="trace",
+                      workload_kwargs=dict(inter_arrivals=[1e-6]),
+                      batching="continuous", max_batch=4,
+                      buckets="pow2:32:64")
+    torch.cuda.synchronize()
+    assert len(trace.latencies) == len(queries)
+    assert len(joins) >= 1
+    assert trace.summary()["mean_batch_occupancy"] > 1.0
+    assert flash_attention.launches == sum(blocks) > 0
