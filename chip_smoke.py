@@ -96,7 +96,42 @@ phase prints its wall time.
    over one query (``torch.profiler``), and the logits of a batch's padded
    rows against each query served alone, which must stay within
    BATCHED_LOGITS_RMS_LIMIT.
-10. the card line again, one ``{"kernels": [...]}`` line, and last
+10. the MoE and embedding-input families, each model alone on the card
+   (the earlier phases' parameters are freed first), with each model's
+   peak device memory:
+   0. the kernels at these paths' shapes (``FAMILY_MAIN_CASES``,
+      ``DECODE_FAMILY_MAIN_CASES``, ``SSD_FAMILY_MAIN_CASES``) against
+      their plain versions at the main limits, timed beside the plain
+      versions and the library call;
+   a. full-width deepseek-moe-16b (28 blocks, 64 routed experts top-6 and
+      2 shared, bf16): block 0's attention with K1 against the plain
+      attention, the mean ``dropped_frac`` of one forward, one block and
+      its MoE sublayer at 1 and 8 rows of 1024 tokens against their
+      bounds; served under ODIN as in phase 6 (a rebalance, K1 28 times a
+      query on the tensor cores); 8 long queries arriving at once served
+      drained and one at a time, the rows of one dispatch against each
+      query alone and 8 copies of one query against each other; the
+      cached path (below) from 1024 tokens in 2048 slots, a decode step
+      against its byte bound;
+   b. full-width hubert-xlarge (an encoder, D 80): ``forward(embeds=)``
+      over 1024 frames, K1 bidirectional in all 48 blocks, then 12
+      closed-loop queries of fixed length served under ODIN;
+   c. full-width llava-next-34b: ``forward(embeds=)`` over 2880 patch
+      embeddings and 64 token embeddings, then the cached path from
+      ``prefill(embeds=)`` into 4096 slots;
+   d. mixtral-8x22b at full width cut to 4 of its 56 blocks: the cached
+      path from a 4608-token prefill (past its 4096-token window) into 8192
+      slots;
+   e. jamba-1.5-large at its smoke width (one published block is 78.7
+      GiB): forward, then the cached path, with K1, K3 and K2 in its
+      block.
+   A cached path holds the prefill's last logits against ``forward``'s,
+   then decodes 16 tokens with K2 (timed), with K2 again from the same
+   cache while every launch is held against the plain attention on the
+   same inputs, and with the plain attention, whose logits the timed
+   run's are held against (DECODE_RMS_LIMIT).  Forwards and prefills run
+   the same check of every K1 and K3 launch against the plain version.
+11. the card line again, one ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM data-sheet peaks: 989 TFLOP/s dense bf16 on the
@@ -105,6 +140,8 @@ tensor cores and 3.35 TB/s of HBM3.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -118,7 +155,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs.llava_next_34b import NUM_PATCH_TOKENS  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import decode_attention as k2_lib  # noqa: E402
@@ -127,10 +165,12 @@ from repro_torch.kernels.cases import (  # noqa: E402
     BATCHED_MAIN_CASES,
     DECODE_CASES,
     DECODE_CORNER_CASES,
+    DECODE_FAMILY_MAIN_CASES,
     DECODE_MAIN_CASE,
     DECODE_MAIN_RMS_LIMIT,
     DECODE_MAIN_TOLERANCE,
     DECODE_RAGGED_CASES,
+    FAMILY_MAIN_CASES,
     FLASH_CASES,
     MAIN_CASES,
     MAIN_RMS_LIMIT,
@@ -139,6 +179,7 @@ from repro_torch.kernels.cases import (  # noqa: E402
     SSD_BATCHED_MAIN_CASE,
     SSD_CASES,
     SSD_CORNER_CASES,
+    SSD_FAMILY_MAIN_CASES,
     SSD_MAIN_CASE,
     SSD_MAIN_RMS_LIMIT,
     SSD_MAIN_TOLERANCE,
@@ -161,6 +202,7 @@ from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import blocks as blk  # noqa: E402
 from repro_torch.models import mamba2 as mamba_lib  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.layers import rms_norm  # noqa: E402
 from repro_torch.pipeline.executor import next_pow2  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
@@ -232,6 +274,15 @@ BATCH_SLOW_FROM, BATCH_SLOW_TO = 8, 21
 # reach through 36 random bf16 blocks (the decode check's reading) and
 # fails a row that reads its padding or another row (order 1).
 BATCHED_LOGITS_RMS_LIMIT = 1e-1
+# Phase 10: the MoE and embedding-input families.  hubert-xlarge serves 12
+# closed-loop queries of SEQ frames; llava-next-34b reads 2880 patch
+# embeddings and 64 token embeddings into a 4096-slot cache;
+# mixtral-8x22b keeps 4 of its 56 blocks and prefills 4608 tokens, past
+# its 4096-token window, into 8192 slots; every cached path decodes 16.
+HUBERT_QUERIES = 12
+LLAVA_TEXT, LLAVA_CACHE = 64, 4096
+MIXTRAL_BLOCKS, MIXTRAL_SEQ, MIXTRAL_CACHE = 4, 4608, 8192
+FAMILY_DECODE_STEPS = 16
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -333,10 +384,19 @@ def bound(flops: float, nbytes: float, peak_flops: float) -> tuple:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def attention_bound(B, Hq, Hkv, S, D, causal, elem_bytes) -> tuple:
+def attention_pairs(S: int, causal: bool, window=None) -> int:
+    """The (query, key) pairs a mask keeps."""
+    if not causal:
+        return S * S
+    w = S if window is None else min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def attention_bound(B, Hq, Hkv, S, D, causal, elem_bytes,
+                    window=None) -> tuple:
     """K1: operations over the bf16 peak, bytes (q, k, v read once, o
     written once) over HBM."""
-    pairs = S * (S + 1) // 2 if causal else S * S
+    pairs = attention_pairs(S, causal, window)
     flops = 2 * 2 * B * Hq * pairs * D          # Q K^T and P V
     nbytes = (2 * Hq + 2 * Hkv) * B * S * D * elem_bytes
     return bound(flops, nbytes, PEAK_BF16_FLOPS)
@@ -786,19 +846,21 @@ def schedule(q: int) -> list:
 
 
 def serve_under_odin(cfg, params, counter, kernel: str,
-                     per_block_ms: float) -> dict:
-    """Serve NUM_QUERIES closed-loop queries of SEQ tokens on 4 stages under
-    ODIN with a 3x slowdown on stage SLOW_EP for queries SLOW_FROM..SLOW_TO;
-    raise unless it rebalances, moves blocks off the slowed stage,
-    conserves blocks, launches ``counter``'s kernel once per block and
-    query, and gives logits that do not depend on the split."""
+                     per_block_ms: float, num_queries: int = NUM_QUERIES,
+                     rebalance: bool = True) -> dict:
+    """Serve ``num_queries`` closed-loop queries of SEQ tokens on 4 stages
+    under ODIN with a 3x slowdown on stage SLOW_EP for queries
+    SLOW_FROM..SLOW_TO; raise unless (with ``rebalance``) it rebalances and
+    moves blocks off the slowed stage, and unless it conserves blocks,
+    launches ``counter``'s kernel once per block and query, and gives
+    logits that do not depend on the split."""
     rng = np.random.default_rng(0)
     eng = ServingEngine(cfg, params, num_eps=4, scheduler="odin", alpha=3,
                         device="cuda")
     eng.executor.warmup(1, SEQ)
     queries = [torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, SEQ)),
                                device="cuda")
-               for _ in range(NUM_QUERIES)]
+               for _ in range(num_queries)]
 
     start_config = eng.config
     reset_counts(counter)
@@ -810,7 +872,7 @@ def serve_under_odin(cfg, params, counter, kernel: str,
     launches = counts.pop("launches")
 
     summary = trace.summary()
-    log(f"  served {NUM_QUERIES} queries of {SEQ} tokens in {wall:.2f} s: "
+    log(f"  served {num_queries} queries of {SEQ} tokens in {wall:.2f} s: "
         f"{json.dumps(summary)}")
     log(f"  configs: {trace.configs}")
     log(f"  start {start_config}, final {trace.configs[-1]}, "
@@ -818,16 +880,20 @@ def serve_under_odin(cfg, params, counter, kernel: str,
         f"{kernel} launches {launches}" + (f", by route {counts}" if counts
                                            else ""))
     episode = trace.configs[SLOW_FROM:SLOW_TO]
-    if trace.num_rebalances < 1:
+    if rebalance and trace.num_rebalances < 1:
         raise AssertionError("ODIN never rebalanced")
-    if not min(c[SLOW_EP] for c in episode) < start_config[SLOW_EP]:
+    if rebalance and not min(c[SLOW_EP] for c in episode) < \
+            start_config[SLOW_EP]:
         raise AssertionError(f"no blocks moved off the slowed stage "
                              f"{SLOW_EP}: {episode}")
+    if len(trace.latencies) != num_queries:
+        raise AssertionError(f"served {len(trace.latencies)} of "
+                             f"{num_queries} queries")
     if any(sum(c) != cfg.num_blocks for c in trace.configs):
         raise AssertionError(f"a config lost blocks: {trace.configs}")
-    if launches != cfg.num_blocks * NUM_QUERIES:
+    if launches != cfg.num_blocks * num_queries:
         raise AssertionError(f"{kernel} launched {launches} times, expected "
-                             f"{cfg.num_blocks} x {NUM_QUERIES}")
+                             f"{cfg.num_blocks} x {num_queries}")
 
     # Outputs: finite logits of the right shape, independent of the split.
     with torch.inference_mode():
@@ -849,8 +915,10 @@ def serve_under_odin(cfg, params, counter, kernel: str,
     eng.executor.head(x)
     t2 = time.perf_counter()
     kern = cfg.num_blocks * per_block_ms
+    before = (f"before: {EARLIER_BLOCKS_MS[cfg.name]} ms; "
+              if cfg.name in EARLIER_BLOCKS_MS else "")
     log(f"  clean query on {start_config}: blocks {1e3 * (t1 - t0):.2f} ms "
-        f"(before: {EARLIER_BLOCKS_MS[cfg.name]} ms; stages "
+        f"({before}stages "
         f"{[round(1e3 * float(s), 2) for s in stages]}), head "
         f"{1e3 * (t2 - t1):.2f} ms; {kernel} {cfg.num_blocks} x "
         f"{per_block_ms:.4f} = {kern:.2f} ms ({100 * kern / (1e3 * (t2 - t0)):.0f}"
@@ -858,8 +926,9 @@ def serve_under_odin(cfg, params, counter, kernel: str,
     return dict(launches=launches, counts=counts, summary=summary)
 
 
-def init_model(arch: str) -> tuple:
-    cfg = get_config(arch)
+def init_model(cfg) -> tuple:
+    """``cfg`` with random bf16 weights from seed 0 on the card."""
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = Model(cfg).init_params(seed=0, dtype=torch.bfloat16,
                                     device="cuda")
@@ -1017,7 +1086,7 @@ def phase_cached(qcfg, qparams, mcfg, mparams) -> dict:
         prefill_ms = 1e3 * (time.perf_counter() - t0)
         k1 = flash_attention.launches
         k1_tensor_cores = flash_attention.tensor_core_launches
-        full = model.forward(qparams, prompt)
+        full, _ = model.forward(qparams, prompt)
         prefill_ratio = rel_rms(last[:, 0], full[:, -1])
         del full
         # How much this random bf16 model amplifies one-ulp differences:
@@ -1101,8 +1170,8 @@ def phase_cached(qcfg, qparams, mcfg, mparams) -> dict:
         # the JAX rule would give 1025 chunks of one token).
         # Each is timed as the median of three after one untimed call (the
         # first call at a new length also allocates).
-        fwd = model.forward(mparams, prompt[:, :SEQ])[:, -1]
-        full = model.forward(mparams, prompt)[:, SEQ]
+        fwd = model.forward(mparams, prompt[:, :SEQ])[0][:, -1]
+        full = model.forward(mparams, prompt)[0][:, SEQ]
         fwd_ms = {n: wall_ms(lambda: model.forward(mparams, prompt[:, :n]))
                   for n in (SEQ, SEQ + 1)}
         prefill_ratio = rel_rms(last[:, 0], fwd)
@@ -1425,6 +1494,572 @@ def phase_batched(qcfg, qparams, mcfg, mparams, k1_ms: float,
                                          k3_ms)}
 
 
+def free_memory() -> None:
+    """Release what the last phase's models left behind."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tree_bytes(tree: dict) -> int:
+    return sum(tree_bytes(v) if isinstance(v, dict)
+               else v.numel() * v.element_size() for v in tree.values())
+
+
+def copy_tree(dst: dict, src: dict) -> None:
+    for k, v in src.items():
+        if isinstance(v, dict):
+            copy_tree(dst[k], v)
+        else:
+            dst[k].copy_(v)
+
+
+def log_memory(name: str) -> None:
+    log(f"  {name}: device memory {torch.cuda.memory_allocated() / 2**30:.2f}"
+        f" GiB allocated, peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB (torch.cuda.max_memory_allocated)")
+
+
+class Shadow:
+    """While active, holds every launch of K1, K2 and K3 that the models
+    make through ``ops`` against the kernel's plain version on the same
+    inputs, and records rms(kernel - plain) / rms(plain) per kernel.  K1's
+    plain version runs one KV head's group of query heads at a time, so its
+    fp32 scores stay small beside a large model.  The plain versions launch
+    no kernel, so the launch counts stay those of the path."""
+
+    LIMITS = {"K1": SUBLAYER_RMS_LIMIT, "K2": DECODE_SUBLAYER_RMS_LIMIT,
+              "K3 y": SSD_MAIN_RMS_LIMIT, "K3 state": SSD_STATE_RMS_LIMIT}
+
+    def __init__(self):
+        self.readings = {name: [] for name in self.LIMITS}
+
+    def __enter__(self):
+        self._saved = (ops.flash_attention, ops.decode_attention,
+                       ops.ssd_scan)
+        fa, da, scan = self._saved
+        rec = self.readings
+
+        def flash(q, k, v, *, causal=True, window=None, impl="auto"):
+            out = fa(q, k, v, causal=causal, window=window, impl=impl)
+            if impl != "ref" and q.is_cuda:
+                G = q.shape[1] // k.shape[1]
+                ref = torch.cat([flash_attention_ref(
+                    q[:, g * G:(g + 1) * G], k[:, g:g + 1], v[:, g:g + 1],
+                    causal=causal, window=window)
+                    for g in range(k.shape[1])], dim=1)
+                rec["K1"].append(rel_rms(out, ref))
+            return out
+
+        def decode(q, k, v, index, *, window=None, impl="auto"):
+            out = da(q, k, v, index, window=window, impl=impl)
+            if impl != "ref" and q.is_cuda:
+                rec["K2"].append(rel_rms(out, decode_attention_ref(
+                    q, k, v, index, window=window)))
+            return out
+
+        def ssd(x, dt, A, B, C, *, chunk=256, impl="auto"):
+            y, state = scan(x, dt, A, B, C, chunk=chunk, impl=impl)
+            if impl != "ref" and x.is_cuda:
+                y_ref, s_ref = ssd_scan_ref(x, dt, A, B, C)
+                rec["K3 y"].append(rel_rms(y, y_ref))
+                rec["K3 state"].append(rel_rms(state, s_ref))
+            return y, state
+
+        ops.flash_attention, ops.decode_attention, ops.ssd_scan = \
+            flash, decode, ssd
+        return self
+
+    def __exit__(self, *exc):
+        ops.flash_attention, ops.decode_attention, ops.ssd_scan = \
+            self._saved
+        return False
+
+    def check(self, what: str) -> None:
+        """Log each kernel's launches and worst reading; raise unless every
+        reading is within its limit."""
+        worst = {name: (len(vals), float(np.max(vals)))
+                 for name, vals in self.readings.items() if vals}
+        log(f"  {what}, every kernel launch against its plain version on "
+            f"the same inputs: " + "; ".join(
+                f"{name} {n} launches, max rms|d|/rms|plain| {w:.3e} (limit "
+                f"{self.LIMITS[name]})" for name, (n, w) in worst.items()))
+        bad = [name for name, (_, w) in worst.items()
+               if not w <= self.LIMITS[name]]
+        if bad:
+            raise AssertionError(f"{what}: {bad} disagree with their plain "
+                                 f"versions: {worst}")
+
+
+def phase_family_kernels() -> dict:
+    """Phase 10's kernel shapes (FAMILY_MAIN_CASES, DECODE_FAMILY_MAIN_CASES,
+    SSD_FAMILY_MAIN_CASES) against the plain versions at the main limits,
+    each timed beside its plain version and the library call."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for case in FAMILY_MAIN_CASES:
+        B, Hq, Hkv, S, D, causal, window, dtype = case
+        q = randn(gen, (B, Hq, S, D), dtype)
+        k = randn(gen, (B, Hkv, S, D), dtype)
+        v = randn(gen, (B, Hkv, S, D), dtype)
+        before = route_counts()["tensor_core_launches"]
+        got = compare(ops.flash_attention(q, k, v, causal=causal,
+                                          window=window, impl="cuda"),
+                      flash_attention_ref(q, k, v, causal=causal,
+                                          window=window),
+                      MAIN_TOLERANCE, f"K1 {case}", MAIN_RMS_LIMIT)
+        if route_counts()["tensor_core_launches"] != before + 1:
+            raise AssertionError(f"K1 {case} did not run on the tensor-core "
+                                 f"kernel")
+        mask = None
+        if window is not None:
+            qp = torch.arange(S, device="cuda")[:, None]
+            kp = torch.arange(S, device="cuda")[None, :]
+            mask = (kp <= qp) & (qp - kp < window)
+        kernel_ms = time_ms(lambda: ops.flash_attention(
+            q, k, v, causal=causal, window=window, impl="cuda"))
+        plain_ms = time_ms(lambda: flash_attention_ref(
+            q, k, v, causal=causal, window=window), reps=5, warmup=1)
+        library_ms = time_ms(lambda: sdpa(
+            q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True))
+        bound_ms, bound_by = attention_bound(B, Hq, Hkv, S, D, causal, 2,
+                                             window)
+        flops = 4 * B * Hq * D * attention_pairs(S, causal, window)
+        out[("K1",) + case] = dict(max_abs_err=got["max_abs_err"],
+                                   ms=kernel_ms, plain_ms=plain_ms,
+                                   library_ms=library_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by)
+        log(f"  K1 {case}: max |err| {got['max_abs_err']:.3e}, rms err / rms "
+            f"ref {got['rms_err'] / got['rms_ref']:.3e} (limits "
+            f"{MAIN_TOLERANCE}, rms {MAIN_RMS_LIMIT}); kernel_ms "
+            f"{kernel_ms:.4f}  plain_ms {plain_ms:.4f}  library_ms "
+            f"{library_ms:.4f} (scaled_dot_product_attention"
+            f"{'' if mask is None else ', boolean window mask'})  bound_ms "
+            f"{bound_ms:.5f} ({bound_by}; {flops / 1e9:.2f} GFLOP; TFLOP/s "
+            f"achieved: kernel {flops / kernel_ms / 1e9:.1f}, library "
+            f"{flops / library_ms / 1e9:.1f})")
+        del q, k, v, mask
+
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda").zero_
+    for case in DECODE_FAMILY_MAIN_CASES:
+        B, Hq, Hkv, S, D, idx, window, dtype = case
+        q = randn(gen, (B, Hq, D), dtype)
+        cache_k = randn(gen, (B, S, Hkv, D), dtype)   # the model's layout
+        cache_v = randn(gen, (B, S, Hkv, D), dtype)
+        k, v = cache_k.transpose(1, 2), cache_v.transpose(1, 2)
+        index = torch.tensor(idx, dtype=torch.int32, device="cuda")
+        before = decode_attention.launches
+        got = compare(ops.decode_attention(q, k, v, index, window=window,
+                                           impl="cuda"),
+                      decode_attention_ref(q, k, v, idx, window=window),
+                      DECODE_MAIN_TOLERANCE, f"K2 {case}",
+                      DECODE_MAIN_RMS_LIMIT)
+        if decode_attention.launches != before + 1:
+            raise AssertionError(f"K2 {case} launched no kernel")
+        kp = torch.arange(S, device="cuda")
+        live = kp <= index
+        if window is not None:
+            live &= kp > index - window
+        mask = live[None, None, None, :]
+        kernel_ms = time_ms(lambda: ops.decode_attention(
+            q, k, v, index, window=window, impl="cuda"), flush=flush)
+        plain_ms = time_ms(lambda: decode_attention_ref(
+            q, k, v, index, window=window), flush=flush)
+        library_ms = time_ms(lambda: sdpa(q[:, :, None], k, v, attn_mask=mask,
+                                          enable_gqa=True), flush=flush)
+        flops, nbytes = decode_work(B, Hq, Hkv, S, D, idx, window, 2)
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        out[("K2",) + case] = dict(max_abs_err=got["max_abs_err"],
+                                   ms=kernel_ms, plain_ms=plain_ms,
+                                   library_ms=library_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by)
+        log(f"  K2 {case} (read strided from a [B, S, Hkv, D] cache): max "
+            f"|err| {got['max_abs_err']:.3e}, rms err / rms ref "
+            f"{got['rms_err'] / got['rms_ref']:.3e} (limits "
+            f"{DECODE_MAIN_TOLERANCE}, rms {DECODE_MAIN_RMS_LIMIT}); "
+            f"kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}  library_ms "
+            f"{library_ms:.4f} (sdpa, boolean mask)  bound_ms {bound_ms:.5f} "
+            f"({bound_by}; {nbytes / 1e6:.2f} MB; "
+            f"{nbytes / kernel_ms / 1e6:.1f} GB/s achieved); L2 flushed "
+            f"before each launch")
+
+    for case in SSD_FAMILY_MAIN_CASES:
+        b, S, H, P, N, chunk, dtype = case
+        errs = []
+        for slow in (True, False):       # the times below take JAX's draw
+            xbc = randn(gen, (b, S, H * P + 2 * N), dtype)
+            x = xbc[..., :H * P].reshape(b, S, H, P)
+            _, dt, A, _, _ = ssd_inputs(gen, b, S, H, P, N, dtype, slow)
+            B, C = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+            gy, _, _ = check_ssd_main(
+                f"K3 {case}, {'slow' if slow else 'JAX'} dt", x, dt, A, B, C,
+                chunk, dtype)
+            errs.append(gy["max_abs_err"])
+        kernel_ms = time_ms(lambda: ops.ssd_scan(x, dt, A, B, C, chunk=chunk,
+                                                 impl="cuda"))
+        plain_ms = time_ms(lambda: ssd_scan_ref(x, dt, A, B, C), reps=3,
+                           warmup=1)
+        flops, nbytes = ssd_work(b, S, H, P, N, chunk, 2)
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        out[("K3",) + case] = dict(max_abs_err=max(errs), ms=kernel_ms,
+                                   plain_ms=plain_ms, library_ms=None,
+                                   bound_ms=bound_ms, bound_by=bound_by)
+        log(f"  K3 {case}: kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.4f}"
+            f"  library_ms none  bound_ms {bound_ms:.5f} ({bound_by}; "
+            f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP; "
+            f"{nbytes / kernel_ms / 1e6:.1f} GB/s achieved); "
+            f"{grid_line(k3_lib.launch_shape(b, S, H, P, N, chunk, x.dtype))}")
+    return out
+
+
+def cached_path(model, params, what: str, inputs: dict, cache_len: int,
+                steps: torch.Tensor, shadow_prefill: bool = True) -> dict:
+    """Prefill ``inputs`` (``tokens=`` or ``embeds=``) into a cache of
+    ``cache_len`` slots, timed, its last logits held against ``forward``'s
+    (the same kernels on the same inputs); then decode ``steps`` [1, n]
+    three times from copies of the prefilled cache: with K2, timed; with
+    K2 under :class:`Shadow`; with the plain attention, whose logits the
+    timed run's are held against.  With ``shadow_prefill`` one more
+    prefill runs first, under :class:`Shadow`.  Returns the timed
+    prefill's K3 launches, the timed decode's K2 launches and its ms per
+    step."""
+    cfg = model.cfg
+    S = next(iter(inputs.values())).shape[1]
+    attn_subs = cfg.layer_pattern.count("attn") * cfg.num_blocks
+    mamba_subs = cfg.layer_pattern.count("mamba") * cfg.num_blocks
+    with torch.inference_mode():
+        cache = model.init_cache(1, cache_len, torch.bfloat16, "cuda")
+        if shadow_prefill:
+            with Shadow() as shadow:
+                model.prefill(params, cache=cache, **inputs)
+            shadow.check(f"{what} prefill of {S}")
+        reset_counts(flash_attention)
+        reset_counts(ssd_scan)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = model.prefill(params, cache=cache, **inputs)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        k1, k3 = flash_attention.launches, ssd_scan.launches
+        k1_tc = flash_attention.tensor_core_launches
+        full, _ = model.forward(params, **inputs)
+        prefill_ratio = rel_rms(last[:, 0], full[:, -1])
+        del full
+        snapshot = clone_tree(cache)
+        reset_counts(decode_attention)
+        kern, kern_ms = decode_loop(model, params, cache, steps, S, "auto")
+        k2 = decode_attention.launches
+        copy_tree(cache, snapshot)
+        with Shadow() as shadow:
+            decode_loop(model, params, cache, steps, S, "auto")
+        shadow.check(f"{what} decode")
+        plain, plain_ms = decode_loop(model, params, snapshot, steps, S,
+                                      "ref")
+        del snapshot, cache
+    n = steps.shape[1]
+    ratios = [rel_rms(a[:, 0], b[:, 0]) for a, b in zip(kern, plain)]
+    log(f"  {what} prefill of {S} positions into {cache_len} slots: "
+        f"{prefill_ms:.2f} ms, K1 launches {k1} ({k1_tc} on the tensor "
+        f"cores), K3 launches {k3}; last logits vs forward's rms|d|/rms|ref| "
+        f"{prefill_ratio:.3e} (limit {PREFILL_RMS_LIMIT})")
+    log(f"  {what} {n} decode steps from slot {S}: K2 launches {k2}; ms per "
+        f"step with K2 {[round(t, 2) for t in kern_ms]} (median "
+        f"{np.median(kern_ms):.2f}), with the plain attention median "
+        f"{np.median(plain_ms):.2f}; logits K2 vs plain rms|d|/rms|ref| per "
+        f"step {[f'{r:.2e}' for r in ratios]} (limit {DECODE_RMS_LIMIT})")
+    checks = {
+        "K1 once per attention sublayer, on the tensor cores":
+            k1 == k1_tc == attn_subs,
+        "K3 once per Mamba2 sublayer": k3 == mamba_subs,
+        "K2 once per attention sublayer and step": k2 == attn_subs * n,
+        "prefill's last logits equal forward's":
+            prefill_ratio <= PREFILL_RMS_LIMIT,
+        "finite decode logits of the right shape": all(
+            tuple(a.shape) == (1, 1, cfg.vocab_size)
+            and bool(torch.isfinite(a).all()) for a in kern),
+        "decode logits with K2 equal the plain attention's":
+            max(ratios) <= DECODE_RMS_LIMIT,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{what} cached path: {failed}")
+    return dict(k2=k2, k3=k3, ms_per_step=kern_ms)
+
+
+def moe_block_work(cfg, rows: int, S: int, weight_bytes: int) -> tuple:
+    """One MoE block's (flops, bytes) over ``rows`` x ``S`` tokens with the
+    dense capacity dispatch: the attention projections and products, the
+    router, the dispatch and combine einsums over every slot, the routed
+    experts over every slot ([G, E, C] whatever the routing) and the shared
+    experts; the block's weights read once and x read and written once."""
+    m, d, hd = cfg.moe, cfg.d_model, cfg.head_dim
+    T = rows * S
+    Tg = moe_lib._group_tokens(T, S, 512)
+    G, C = T // Tg, moe_lib.capacity_per_group(Tg, m)
+    flops = 2 * T * (d * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd
+                     + cfg.num_heads * hd * d)
+    flops += 4 * rows * cfg.num_heads * hd * attention_pairs(
+        S, cfg.causal, cfg.sliding_window)
+    flops += 2 * T * d * m.num_experts
+    flops += 2 * 2 * G * Tg * m.num_experts * C * d
+    flops += 3 * 2 * G * m.num_experts * C * d * m.d_expert
+    flops += 3 * 2 * T * d * m.num_shared_experts * m.d_shared
+    return flops, weight_bytes + 2 * T * d * 2
+
+
+def burst_rows_alone(cfg, params, burst: list) -> None:
+    """``burst``'s queries of LONG tokens arriving at once on a static
+    4-stage split, served drained and one at a time (host clock); then the
+    rows of one dispatch of all of them against each query alone at the
+    same length, and the rows of one dispatch of copies of the first query
+    against each other (equal unless a row reads another)."""
+    static = ServingEngine(cfg, params, num_eps=4, scheduler="none",
+                           device="cuda")
+    static.executor.warm_buckets([LONG], MAX_BATCH)
+    at_once = dict(workload="trace", workload_kwargs=dict(
+        inter_arrivals=[0.0]))
+    walls = {}
+    for name, opts in (("solo", dict(max_batch=1)),
+                       ("drained", dict(batching="drain",
+                                        max_batch=MAX_BATCH,
+                                        buckets=BUCKETS))):
+        t0 = time.perf_counter()
+        static.serve(burst, lambda q: [1.0] * 4, **at_once, **opts)
+        walls[name] = time.perf_counter() - t0
+    ex = static.executor
+    with torch.inference_mode():
+        batched, _ = ex.run_batch(burst, static.config)
+        ratios = [rel_rms(batched[i], ex.run_query(q, static.config)[0][0])
+                  for i, q in enumerate(burst)]
+        finite = bool(torch.isfinite(batched).all())
+        del batched
+        copies, _ = ex.run_batch([burst[0]] * len(burst), static.config)
+        same = max(rel_rms(copies[i], copies[0])
+                   for i in range(1, len(burst)))
+        del copies
+    log(f"  {len(burst)} queries of {LONG} tokens arriving at once on "
+        f"{static.config}, host clock: drained {walls['drained']:.4f} s, one "
+        f"at a time {walls['solo']:.4f} s; the rows of one dispatch against "
+        f"each query alone, rms|d|/rms|alone|: "
+        f"{[f'{r:.3e}' for r in ratios]} (limit {BATCHED_LOGITS_RMS_LIMIT}; "
+        f"groups of 512 tokens stay within a row at this power-of-two "
+        f"length); {len(burst)} copies of one query in one dispatch, the "
+        f"rows against row 0: max rms|d|/rms|row 0| {same:.3e}")
+    if not (finite and max(ratios) <= BATCHED_LOGITS_RMS_LIMIT
+            and same <= BATCHED_LOGITS_RMS_LIMIT):
+        raise AssertionError(f"{cfg.name}: a batched row's logits differ "
+                             f"from the query's alone: {ratios}, or from a "
+                             f"copy's in the same dispatch: {same}")
+
+
+def phase_deepseek(k1_ms: float) -> dict:
+    """10a: full-width deepseek-moe-16b (see the module docstring)."""
+    cfg, params = init_model(get_config("deepseek-moe-16b"))
+    model = Model(cfg)
+    rng = np.random.default_rng(10)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (MAX_BATCH, SEQ)),
+                           device="cuda")
+    bp = blk.block_params(params["blocks"], 0)
+    sub = bp["sub0"]
+    weight_bytes = tree_bytes(bp)
+    with torch.inference_mode():
+        x = params["embed"]["table"][toks[:1]]
+        pos = torch.arange(SEQ, device="cuda").expand(1, SEQ)
+        h = rms_norm(x, sub["ln1"]["scale"], cfg.rms_eps)
+        a_kernel = attn_lib.attention_forward(sub["mixer"], cfg, h, pos)
+        a_plain = attn_lib.attention_forward(sub["mixer"], cfg, h, pos,
+                                             impl="ref")
+        ratio = rel_rms(a_kernel, a_plain)
+        logits, stats = model.forward(params, toks[:1])
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("deepseek-moe-16b: non-finite logits")
+        dropped = float(stats["dropped_frac"]) / cfg.num_blocks
+        for rows in (1, MAX_BATCH):
+            xr = params["embed"]["table"][toks[:rows]]
+            posr = torch.arange(SEQ, device="cuda").expand(rows, SEQ)
+            hr = rms_norm(xr, sub["ln2"]["scale"], cfg.rms_eps)
+            block_ms = time_ms(lambda: blk.block_forward(bp, cfg, xr, posr),
+                               reps=10)
+            moe_ms = time_ms(lambda: moe_lib.moe_forward(sub["ffn"], cfg.moe,
+                                                         hr), reps=10)
+            flops, nbytes = moe_block_work(cfg, rows, SEQ, weight_bytes)
+            log(f"  one block at {rows} x {SEQ} tokens: {block_ms:.3f} ms "
+                f"(CUDA events), of which the MoE sublayer {moe_ms:.3f} ms "
+                f"({100 * moe_ms / block_ms:.0f}%); bounds: "
+                f"{1e3 * flops / PEAK_BF16_FLOPS:.3f} ms of operations "
+                f"({flops / 1e9:.1f} GFLOP at the bf16 peak), "
+                f"{1e3 * nbytes / PEAK_HBM_BYTES:.3f} ms of bytes "
+                f"({weight_bytes / 2**30:.3f} GiB of weights); "
+                f"{flops / block_ms / 1e9:.1f} TFLOP/s achieved")
+    log(f"  block 0's attention sublayer, K1 vs plain attention: rms|d|/"
+        f"rms|ref| {ratio:.3e} (limit {SUBLAYER_RMS_LIMIT}); one forward of "
+        f"{SEQ} tokens: mean dropped_frac {dropped:.4f} over "
+        f"{cfg.num_blocks} blocks (capacity {moe_lib.capacity_per_group(512, cfg.moe)}"
+        f" slots per expert and group of 512), aux_loss "
+        f"{float(stats['aux_loss']):.3f}, router_z "
+        f"{float(stats['router_z']):.3f} (summed over blocks)")
+    if not ratio <= SUBLAYER_RMS_LIMIT:
+        raise AssertionError(f"deepseek block 0's attention with K1: "
+                             f"{ratio:.3e}")
+    served = serve_under_odin(cfg, params, flash_attention, "K1", k1_ms)
+    want = {"tensor_core_launches": cfg.num_blocks * NUM_QUERIES,
+            "cuda_core_launches": 0}
+    if served["counts"] != want:
+        raise AssertionError(f"K1 routes while serving: {served['counts']}")
+    burst_rows_alone(cfg, params, list(toks[:, None]))
+    cont = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (1, FAMILY_DECODE_STEPS)),
+                           device="cuda")
+    cached = cached_path(model, params, "deepseek-moe-16b",
+                         dict(tokens=toks[:1]), CACHE_LEN, cont)
+    step_bytes = (tree_bytes(params["blocks"]) + tree_bytes(params["head"])
+                  + 2 * cfg.num_blocks * (SEQ + FAMILY_DECODE_STEPS)
+                  * cfg.num_kv_heads * cfg.head_dim * 2)
+    log(f"  a decode step reads every expert of every block (the dense "
+        f"dispatch): {step_bytes / 2**30:.2f} GiB, "
+        f"{1e3 * step_bytes / PEAK_HBM_BYTES:.2f} ms at the HBM peak, "
+        f"against a median step of {np.median(cached['ms_per_step']):.2f} ms")
+    log_memory("deepseek-moe-16b")
+    return dict(served=served, cached=cached)
+
+
+def phase_hubert(k1_ms: float) -> dict:
+    """10b: full-width hubert-xlarge."""
+    cfg, params = init_model(get_config("hubert-xlarge"))
+    model = Model(cfg)
+    rng = np.random.default_rng(11)
+    # The frame embeddings of the stubbed feature extractor: rows of the
+    # model's own 504-row table, the scale of its embeddings.
+    frames = params["embed"]["table"][torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (1, SEQ)), device="cuda")]
+    with torch.inference_mode():
+        reset_counts(flash_attention)
+        with Shadow() as shadow:
+            logits, _ = model.forward(params, embeds=frames)
+        counts = route_counts()
+        shadow.check(f"hubert-xlarge forward(embeds=) over {SEQ} frames")
+        ok = (tuple(logits.shape) == (1, SEQ, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()))
+    log(f"  hubert-xlarge forward: K1 launches by route {counts} "
+        f"(bidirectional, D {cfg.head_dim})")
+    if not ok or counts != {"tensor_core_launches": cfg.num_blocks,
+                            "cuda_core_launches": 0}:
+        raise AssertionError(f"hubert-xlarge forward: {counts}, logits ok "
+                             f"{ok}")
+    served = serve_under_odin(cfg, params, flash_attention, "K1", k1_ms,
+                              num_queries=HUBERT_QUERIES, rebalance=False)
+    if served["counts"]["cuda_core_launches"]:
+        raise AssertionError(f"K1 routes while serving: {served['counts']}")
+    log_memory("hubert-xlarge")
+    return dict(served=served)
+
+
+def phase_llava() -> dict:
+    """10c: full-width llava-next-34b, alone on the card."""
+    cfg, params = init_model(get_config("llava-next-34b"))
+    model = Model(cfg)
+    rng = np.random.default_rng(12)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    # The anyres frontend is a stub: patch embeddings drawn at the scale of
+    # the token embeddings, then the text's token embeddings.
+    patches = (torch.randn((1, NUM_PATCH_TOKENS, cfg.d_model), generator=gen,
+                           device="cuda") * cfg.d_model ** -0.5)
+    text = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, LLAVA_TEXT)),
+                           device="cuda")
+    embeds = torch.cat([patches.to(torch.bfloat16),
+                        params["embed"]["table"][text]], dim=1)
+    del patches
+    S = embeds.shape[1]
+    with torch.inference_mode():
+        reset_counts(flash_attention)
+        with Shadow() as shadow:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = model.forward(params, embeds=embeds)
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t0
+        counts = route_counts()
+        shadow.check(f"llava-next-34b forward(embeds=) over {S} positions")
+        ok = (tuple(logits.shape) == (1, S, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()))
+        del logits
+    log(f"  llava-next-34b forward over {NUM_PATCH_TOKENS} patch and "
+        f"{LLAVA_TEXT} token embeddings: {fwd_s:.3f} s with the checks; K1 "
+        f"launches by route {counts}")
+    if not ok or counts["tensor_core_launches"] != cfg.num_blocks:
+        raise AssertionError(f"llava-next-34b forward: {counts}, logits ok "
+                             f"{ok}")
+    cont = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (1, FAMILY_DECODE_STEPS)),
+                           device="cuda")
+    cached = cached_path(model, params, "llava-next-34b",
+                         dict(embeds=embeds), LLAVA_CACHE, cont,
+                         shadow_prefill=False)
+    log_memory("llava-next-34b")
+    return dict(cached=cached)
+
+
+def phase_mixtral() -> dict:
+    """10d: mixtral-8x22b at full width, depth cut to MIXTRAL_BLOCKS."""
+    full = get_config("mixtral-8x22b")
+    log(f"  reduced: mixtral-8x22b depth {MIXTRAL_BLOCKS} of "
+        f"{full.num_blocks} blocks at full width ({full.param_count() / 1e9:.1f}"
+        f" B parameters, {2 * full.param_count() / 2**30:.1f} GiB in bf16, do "
+        f"not fit one 80 GB card)")
+    cfg, params = init_model(dataclasses.replace(full,
+                                                 num_layers=MIXTRAL_BLOCKS))
+    model = Model(cfg)
+    rng = np.random.default_rng(13)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, MIXTRAL_SEQ)),
+                           device="cuda")
+    cont = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (1, FAMILY_DECODE_STEPS)),
+                           device="cuda")
+    cached = cached_path(model, params, f"mixtral-8x22b (window "
+                         f"{cfg.sliding_window})", dict(tokens=toks),
+                         MIXTRAL_CACHE, cont)
+    log_memory("mixtral-8x22b")
+    return dict(cached=cached)
+
+
+def phase_jamba() -> dict:
+    """10e: jamba-1.5-large at its smoke width."""
+    full = get_config("jamba-1.5-large-398b")
+    cfg = get_smoke_config("jamba-1.5-large-398b")
+    per_block = 2 * full.param_count() / full.num_blocks / 2**30
+    log(f"  reduced: jamba-1.5-large-398b at its smoke width (d_model "
+        f"{cfg.d_model}, {cfg.num_blocks} block of {cfg.layer_pattern}, MoE "
+        f"on sublayers {[i for i in range(len(cfg.layer_pattern)) if cfg.sublayer_is_moe(i)]}"
+        f", {cfg.moe.num_experts} experts): one published block is "
+        f"{per_block:.1f} GiB in bf16, more than one 80 GB card holds")
+    cfg, params = init_model(cfg)
+    model = Model(cfg)
+    rng = np.random.default_rng(14)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, SEQ)),
+                           device="cuda")
+    with torch.inference_mode():
+        reset_counts(flash_attention)
+        reset_counts(ssd_scan)
+        with Shadow() as shadow:
+            logits, stats = model.forward(params, toks)
+        k1, k3 = flash_attention.launches, ssd_scan.launches
+        shadow.check(f"jamba forward over {SEQ} tokens")
+        ok = bool(torch.isfinite(logits).all())
+    log(f"  jamba forward: K1 launches {k1}, K3 launches {k3}, dropped_frac "
+        f"{float(stats['dropped_frac']):.4f} (summed over its "
+        f"{len(cfg.layer_pattern) // cfg.moe.every} MoE sublayers)")
+    if not (ok and k1 == cfg.num_blocks and k3 == 7 * cfg.num_blocks):
+        raise AssertionError(f"jamba forward: K1 {k1}, K3 {k3}, finite {ok}")
+    cont = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (1, FAMILY_DECODE_STEPS)),
+                           device="cuda")
+    cached = cached_path(model, params, "jamba (smoke width)",
+                         dict(tokens=toks), CACHE_LEN, cont)
+    log_memory("jamba (smoke width)")
+    return dict(cached=cached, k3=k3)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
@@ -1477,10 +2112,10 @@ def main() -> None:
                     phase_kernel_check)
     k3 = phase("phase 4: K3 against its plain version", phase_ssd_check)
     k2 = phase("phase 5: K2 against its plain version", phase_decode_check)
-    qcfg, qparams = init_model("qwen3-4b")
+    qcfg, qparams = init_model(get_config("qwen3-4b"))
     served = phase("phase 6: full-width qwen3-4b under ODIN", phase_qwen,
                    qcfg, qparams, main_k1[SEQ]["ms"])
-    mcfg, mparams = init_model("mamba2-370m")
+    mcfg, mparams = init_model(get_config("mamba2-370m"))
     served_m = phase("phase 7: full-width mamba2-370m under ODIN",
                      phase_mamba, mcfg, mparams, k3["ms"])
     cached = phase("phase 8: the cached path (prefill, decode)",
@@ -1489,18 +2124,58 @@ def main() -> None:
                     phase_batched, qcfg, qparams, mcfg, mparams,
                     main_k1[(MAX_BATCH, LONG)]["ms"], k3["batched_ms"])
 
-    k1 = main_k1[SEQ]
-    k1 = dict(k1, max_abs_err=max(m["max_abs_err"] for m in main_k1.values()))
-    # Launches on the main paths: the closed-loop serve and the batched
-    # one for K1 and K3, the decode steps for K2.
+    # Phase 10 loads each model alone: the earlier phases' go first.
+    del qparams, mparams
+    free_memory()
+    log(f"  freed qwen3-4b and mamba2-370m: device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    family = phase("phase 10.0: the new paths' kernel shapes against their "
+                   "plain versions", phase_family_kernels)
+    free_memory()
+
+    def family_ms(kernel: str, *shape) -> float:
+        return next(m["ms"] for key, m in family.items()
+                    if key[0] == kernel and key[1:1 + len(shape)] == shape)
+
+    ds = phase("phase 10a: full-width deepseek-moe-16b under ODIN",
+               phase_deepseek, family_ms("K1", 1, 16, 16, 1024, 128))
+    free_memory()
+    hub = phase("phase 10b: full-width hubert-xlarge", phase_hubert,
+                family_ms("K1", 1, 16, 16, 1024, 80))
+    free_memory()
+    llava = phase("phase 10c: full-width llava-next-34b", phase_llava)
+    free_memory()
+    mixtral = phase("phase 10d: mixtral-8x22b, 4 blocks at full width",
+                    phase_mixtral)
+    free_memory()
+    jamba = phase("phase 10e: jamba-1.5-large at its smoke width",
+                  phase_jamba)
+    cached_10 = [ds["cached"], llava["cached"], mixtral["cached"],
+                 jamba["cached"]]
+
+    def worst(kernel: str, readings: list) -> float:
+        return max([m["max_abs_err"] for m in readings]
+                   + [m["max_abs_err"] for key, m in family.items()
+                      if key[0] == kernel])
+
+    k1 = dict(main_k1[SEQ], max_abs_err=worst("K1", main_k1.values()))
+    k2 = dict(k2, max_abs_err=worst("K2", [k2]))
+    k3 = dict(k3, max_abs_err=worst("K3", [k3]))
+    # Launches on the main paths: the closed-loop serves (qwen3-4b,
+    # deepseek-moe-16b, hubert-xlarge) and the batched one for K1; the
+    # decode steps of every cached path for K2; the closed-loop and batched
+    # serves of mamba2-370m and jamba's forward and prefill for K3.
     rows = [
         ("flash_attention", "flash_attention.py:96",
          served["counts"]["tensor_core_launches"]
-         + batched["qwen3-4b"]["launches"], k1),
+         + batched["qwen3-4b"]["launches"] + ds["served"]["launches"]
+         + hub["served"]["launches"], k1),
         ("decode_attention", "decode_attention.py:78",
-         cached["qwen3-4b"]["launches"], k2),
+         cached["qwen3-4b"]["launches"] + sum(c["k2"] for c in cached_10),
+         k2),
         ("ssd_scan", "ssd_scan.py:71",
-         served_m["launches"] + batched["mamba2-370m"]["launches"], k3),
+         served_m["launches"] + batched["mamba2-370m"]["launches"]
+         + jamba["k3"] + jamba["cached"]["k3"], k3),
     ]
     sources = {"flash_attention": "flash_attention_bf16"}
     kernels = [{

@@ -1,17 +1,32 @@
 """Model configuration: the port's copy of the JAX package's
-``configs/base.py`` for the dense attention and Mamba2 configs.
+``configs/base.py`` (every arch of the JAX package, with the same fields,
+parameter counts and registry).
 
 Every architecture is a :class:`ModelConfig`.  The pipeline unit is a
 *block* (a homogeneous super-layer), so stage boundaries can be runtime
-arguments.  The MoE sub-config arrives with the family that uses it
-(ROADMAP.md Queue 1 item 9); the field stays, ``None``, so a config has
-the same fields in both packages.
+arguments.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts settings for the FFN sublayer."""
+
+    num_experts: int
+    num_experts_per_tok: int
+    d_expert: int                 # hidden size of each routed expert
+    num_shared_experts: int = 0   # DeepSeek-style always-on experts
+    d_shared: int = 0             # hidden size of each shared expert
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    # Apply MoE every `every` blocks starting at `offset` (Jamba: every=2).
+    every: int = 1
+    offset: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +61,7 @@ class ModelConfig:
     vocab_size: int
     head_dim: Optional[int] = None          # defaults to d_model // num_heads
     layer_pattern: Tuple[str, ...] = ("attn",)
-    moe: Optional[object] = None            # MoE sub-config (not ported)
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     qk_norm: bool = False
     qkv_bias: bool = False
@@ -76,16 +91,22 @@ class ModelConfig:
     def block_has_mamba(self) -> bool:
         return "mamba" in self.layer_pattern
 
+    def sublayer_is_moe(self, sublayer_idx: int) -> bool:
+        """Whether the FFN of sublayer `sublayer_idx` (within a block) is MoE."""
+        if self.moe is None:
+            return False
+        return sublayer_idx % self.moe.every == self.moe.offset
+
     def param_count(self) -> int:
         """Rough parameter count (embed + blocks + head), the JAX
-        package's formula for the dense and Mamba2 families."""
+        package's formula."""
         d, h = self.d_model, self.head_dim
         n_q, n_kv = self.num_heads, self.num_kv_heads
         total = self.vocab_size * d
         if self.is_decoder:
             total += self.vocab_size * d
         per_pattern = 0
-        for kind in self.layer_pattern:
+        for i, kind in enumerate(self.layer_pattern):
             if kind == "attn":
                 per_pattern += d * (n_q * h) + 2 * d * (n_kv * h) + (n_q * h) * d
             else:  # mamba2
@@ -96,9 +117,25 @@ class ModelConfig:
                 per_pattern += d * (2 * din + 2 * s.d_state + nh) + din * d
                 per_pattern += s.d_conv * (din + 2 * s.d_state)
             per_pattern += 2 * d  # norms
-            if kind == "attn" and self.d_ff > 0 and self.family != "ssm":
+            if self.moe is not None and self.sublayer_is_moe(i):
+                m = self.moe
+                per_pattern += m.num_experts * 3 * d * m.d_expert
+                per_pattern += m.num_shared_experts * 3 * d * m.d_shared
+                per_pattern += d * m.num_experts  # router
+            elif kind == "attn" and self.d_ff > 0 and self.family != "ssm":
                 per_pattern += 3 * d * self.d_ff
         return total + self.num_blocks * per_pattern
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed top-k + shared)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        moe_sublayers = sum(
+            1 for i in range(len(self.layer_pattern)) if self.sublayer_is_moe(i))
+        inactive = (m.num_experts - m.num_experts_per_tok) * 3 \
+            * self.d_model * m.d_expert
+        return self.param_count() - self.num_blocks * moe_sublayers * inactive
 
 
 # ---------------------------------------------------------------------------
@@ -106,32 +143,22 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 
 _ARCH_MODULES = {
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "llava-next-34b": "llava_next_34b",
+    "mamba2-370m": "mamba2_370m",
+    "hubert-xlarge": "hubert_xlarge",
     "qwen3-32b": "qwen3_32b",
     "qwen3-4b": "qwen3_4b",
     "qwen2-0.5b": "qwen2_0_5b",
     "qwen3-8b": "qwen3_8b",
-    "mamba2-370m": "mamba2_370m",
-}
-
-#: Archs of the JAX package the port does not run yet, with the ROADMAP
-#: item that ports each.
-_NOT_PORTED = {
-    "jamba-1.5-large-398b": "Queue 1 item 9 (MoE; its Mamba2 sublayers "
-                            "are ported)",
-    "deepseek-moe-16b": "Queue 1 item 9 (MoE)",
-    "mixtral-8x22b": "Queue 1 item 9 (MoE)",
-    "llava-next-34b": "Queue 1 item 6h (embedding-input configs)",
-    "hubert-xlarge": "Queue 1 item 6h (encoder configs)",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)
 
 
 def _module(arch: str):
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported to repro_torch yet; see ROADMAP.md "
-            f"{_NOT_PORTED[arch]}")
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
@@ -143,5 +170,6 @@ def get_config(arch: str) -> ModelConfig:
 
 
 def get_smoke_config(arch: str) -> ModelConfig:
-    """Reduced variant of the same family: 2 blocks, d_model <= 256."""
+    """Reduced variant of the same family: <= 2 blocks, d_model <= 512,
+    <= 4 experts."""
     return _module(arch).smoke_config()

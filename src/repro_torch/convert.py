@@ -3,9 +3,9 @@
 The JAX parameters arrive as a nested dict of numpy arrays (the caller
 runs ``jax.tree.map(np.asarray, params)``); both packages use the same
 nested layout with block leaves stacked ``[num_blocks, ...]``, so the
-bridge is a leaf-by-leaf copy.  The Mamba2 leaves that the JAX init holds
-in fp32 whatever the model's dtype (``A_log``, ``D``, ``dt_bias``) stay
-fp32.
+bridge is a leaf-by-leaf copy.  The leaves that the JAX init holds in fp32
+whatever the model's dtype stay fp32: Mamba2's ``A_log``, ``D`` and
+``dt_bias``, and the MoE ``router``.
 """
 from __future__ import annotations
 
@@ -14,8 +14,12 @@ from typing import Mapping, Union
 import numpy as np
 import torch
 
-from repro_torch.models.mamba2 import FP32_LEAVES
+from repro_torch.models import mamba2, moe
 from repro_torch.util.device import resolve_device
+
+#: Leaves kept in fp32 whatever the model's dtype, as the JAX inits keep
+#: them.
+FP32_LEAVES = mamba2.FP32_LEAVES | moe.FP32_LEAVES
 
 
 def params_from_jax(tree: Mapping, dtype=torch.float32,

@@ -49,6 +49,20 @@ MAIN_CASES = [(1, 32, 8, s, 128, True, None, "bfloat16") for s in MAIN_SEQS]
 # limits below.
 BATCHED_MAIN_CASES = [(8, 32, 8, s, 128, True, None, "bfloat16")
                       for s in (1024, 256)]
+# The paths of the MoE and embedding-input families at their published
+# widths, held at the main limits below: group 1 (MHA) on the tensor-core
+# route, D 80 bidirectional, group 7 over a length that is not a multiple of
+# 128, and a window that bites (it is below S).
+FAMILY_MAIN_CASES = [
+    (1, 16, 16, 1024, 128, True, None, "bfloat16"),   # deepseek-moe-16b
+    (8, 16, 16, 1024, 128, True, None, "bfloat16"),   # deepseek, 8 rows
+    (8, 16, 16, 256, 128, True, None, "bfloat16"),
+    (1, 16, 16, 1024, 80, False, None, "bfloat16"),   # hubert-xlarge
+    # llava-next-34b: 2880 patch positions plus 64 text tokens.
+    (1, 56, 8, 2944, 128, True, None, "bfloat16"),
+    (1, 48, 8, 4608, 128, True, 4096, "bfloat16"),    # mixtral-8x22b
+    (1, 64, 8, 1024, 128, True, None, "bfloat16"),    # jamba-1.5-large
+]
 
 # Elementwise |got - want| <= atol + rtol |want|.  The JAX package's limits
 # hold for FLASH_CASES and RAGGED_CASES: bf16 keeps ~3 significant digits.
@@ -92,6 +106,15 @@ DECODE_CORNER_CASES = [
 # The main path: qwen3-4b's decode, q [1, 32, 128] against a 2048-slot
 # cache holding a 1024-token prompt and 16 decoded tokens.
 DECODE_MAIN_CASE = (1, 32, 8, 2048, 128, 1040, None, "bfloat16")
+# The decode of the MoE and embedding-input families at their published
+# widths, held at the main limits below: deepseek-moe-16b (MHA) after a
+# 1024-token prompt, llava-next-34b after 2880 patch positions and 64
+# tokens, and mixtral-8x22b past its 4096-slot window.
+DECODE_FAMILY_MAIN_CASES = [
+    (1, 16, 16, 2048, 128, 1040, None, "bfloat16"),
+    (1, 56, 8, 4096, 128, 2960, None, "bfloat16"),
+    (1, 48, 8, 8192, 128, 4620, 4096, "bfloat16"),
+]
 # There a row averages 1041 live slots, so the output's rms is about 0.054
 # for N(0, 1) inputs and the bf16 limit of 5e-2 would be of its size.  At
 # the main shape: 1e-4 elementwise (0.2% of rms(ref)) plus 1e-2 of |ref|
@@ -145,6 +168,13 @@ SSD_BATCHED_MAIN_CASE = (8, 1024, 32, 64, 128, 256, "bfloat16")
 SSD_MAIN_TOLERANCE = dict(atol=5e-4, rtol=1e-2)
 SSD_MAIN_RMS_LIMIT = 2e-4
 SSD_STATE_RMS_LIMIT = 1e-5
+# jamba-1.5-large-398b's Mamba2 sublayers, held at the main limits above:
+# at its published width (H 256, P 64, N 128) and at its smoke width (H 8,
+# N 32, chunk 32), which is what its block runs on the card.
+SSD_FAMILY_MAIN_CASES = [
+    (1, 1024, 256, 64, 128, 256, "bfloat16"),
+    (1, 1024, 8, 64, 32, 32, "bfloat16"),
+]
 
 
 def ssd_limit(dtype: str) -> float:

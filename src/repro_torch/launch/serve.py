@@ -8,7 +8,10 @@
 The port's counterpart of the JAX package's ``launch/serve.py`` for one
 engine.  It serves the smoke variant of the chosen arch in fp32 (as the
 JAX CLI does) or, with ``--full``, the published full-width config in
-bf16, injects interference episodes, and reports the trace's summary:
+bf16 (``--blocks`` cuts its depth: ``--full --arch mixtral-8x22b
+--blocks 4``), injects interference episodes, and reports the trace's
+summary.  Like the JAX CLI it refuses the embedding-input archs
+(llava-next-34b, hubert-xlarge).  The summary holds
 latency, queueing, throughput, rebalances and, for formed dispatches,
 batch occupancy and padding.  The JAX CLI's replica, router, admission,
 SLO, tier, fault, retry and hedging options wait for ROADMAP item 6f.
@@ -113,6 +116,8 @@ def main() -> None:
     except RuntimeError as err:
         raise SystemExit(f"error: {err}")
     cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
+    if cfg.embedding_inputs:
+        raise SystemExit("serve demo uses token models; pick a non-VLM arch")
     if args.blocks:
         cfg = dataclasses.replace(
             cfg, num_layers=args.blocks * len(cfg.layer_pattern))

@@ -1,10 +1,12 @@
-"""Block (pipeline-unit) definitions for the attention and Mamba2 families.
+"""Block (pipeline-unit) definitions.
 
 Mirrors the JAX package's ``models/blocks.py``: a *block* is the
 homogeneous super-layer the pipeline scheduler moves between stages --
-dense → one attention sublayer, ssm → one Mamba2 sublayer.  Every sublayer
-is pre-norm:  x += Mixer(LN(x));  x += MLP(LN(x)) (the ssm family has no
-MLP).  Blocks expose three modes:
+dense/moe/vlm/audio → one attention sublayer; ssm → one Mamba2 sublayer;
+hybrid (Jamba) → the period-8 super-block (1 attn + 7 mamba), MoE on
+alternating sublayers.  Every sublayer is pre-norm:  x += Mixer(LN(x));
+x += FFN(LN(x)), where the FFN is a SwiGLU MLP, an MoE or (ssm) none.
+Blocks expose three modes:
 
 * ``block_forward``   — full sequence (serving / prefill compute)
 * ``block_prefill``   — full sequence + fills the decode cache
@@ -14,8 +16,6 @@ Parameters and caches of all blocks are stacked along a leading
 ``num_blocks`` axis (the JAX pytree's layout), so a pipeline stage runs
 blocks ``[lo, hi)`` by index.  Unlike the JAX versions, which return new
 caches, ``block_prefill`` and ``block_decode`` update the cache in place.
-
-MoE sublayers are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -27,20 +27,26 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2 as mamba_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import init_mlp, init_rms_norm, mlp, rms_norm
+
+ZERO_STATS = dict(aux_loss=0.0, router_z=0.0, dropped_frac=0.0)
 
 
 def _sublayer_kinds(cfg: ModelConfig):
     """[(mixer_kind, ffn_kind)] per sublayer of one block."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE sublayers are not ported yet "
-            "(ROADMAP.md Queue 1 item 9)")
-    if cfg.family == "ssm" or cfg.d_ff <= 0:
-        ffn = "none"
-    else:
-        ffn = "dense"
-    return [(mixer, ffn) for mixer in cfg.layer_pattern]
+    out = []
+    for i, mixer in enumerate(cfg.layer_pattern):
+        if cfg.family == "ssm":
+            ffn = "none"
+        elif cfg.moe is not None and cfg.sublayer_is_moe(i):
+            ffn = "moe"
+        elif cfg.d_ff > 0:
+            ffn = "dense"
+        else:
+            ffn = "none"
+        out.append((mixer, ffn))
+    return out
 
 
 def init_stacked_blocks(gen: torch.Generator, cfg: ModelConfig,
@@ -56,8 +62,12 @@ def init_stacked_blocks(gen: torch.Generator, cfg: ModelConfig,
         else:
             sub["mixer"] = mamba_lib.init_mamba(gen, cfg, dtype, device,
                                                 lead)
-        if ffn == "dense":
+        if ffn != "none":
             sub["ln2"] = init_rms_norm(cfg.d_model, dtype, device, lead)
+        if ffn == "moe":
+            sub["ffn"] = moe_lib.init_moe(gen, cfg.d_model, cfg.moe, dtype,
+                                          device, lead)
+        elif ffn == "dense":
             sub["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device,
                                   lead)
         params[f"sub{i}"] = sub
@@ -77,15 +87,25 @@ def block_params(stacked: Dict, i: int) -> Dict:
             for k, v in stacked.items()}
 
 
-def block_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-                  positions: torch.Tensor, impl: str = "auto") -> torch.Tensor:
-    """Full-sequence application of one block.
+def _apply_ffn(sub: Dict, cfg: ModelConfig, ffn_kind: str, x: torch.Tensor):
+    """Returns (delta, stats)."""
+    if ffn_kind == "none":
+        return None, ZERO_STATS
+    h = rms_norm(x, sub["ln2"]["scale"], cfg.rms_eps)
+    if ffn_kind == "moe":
+        y, st = moe_lib.moe_forward(sub["ffn"], cfg.moe, h)
+        return y, dict(aux_loss=st.aux_loss, router_z=st.router_z,
+                       dropped_frac=st.dropped_frac)
+    return mlp(sub["ffn"], h), ZERO_STATS
 
-    The JAX version also returns summed MoE router statistics; with no MoE
-    sublayer ported they are always zero, so only ``x`` is returned.
-    ``impl`` is passed to the mixer's kernel (``ops.flash_attention`` or
-    ``ops.ssd_scan``).
+
+def block_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                  positions: torch.Tensor, impl: str = "auto") -> tuple:
+    """Full-sequence application of one block; returns (x, summed router
+    stats).  ``impl`` is passed to the mixer's kernel
+    (``ops.flash_attention`` or ``ops.ssd_scan``).
     """
+    stats = dict(ZERO_STATS)
     for i, (mixer, ffn) in enumerate(_sublayer_kinds(cfg)):
         sub = params[f"sub{i}"]
         h = rms_norm(x, sub["ln1"]["scale"], cfg.rms_eps)
@@ -94,10 +114,11 @@ def block_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                                                positions, impl=impl)
         else:
             x = x + mamba_lib.mamba_forward(sub["mixer"], cfg, h, impl=impl)
-        if ffn == "dense":
-            h = rms_norm(x, sub["ln2"]["scale"], cfg.rms_eps)
-            x = x + mlp(sub["ffn"], h)
-    return x
+        delta, st = _apply_ffn(sub, cfg, ffn, x)
+        if delta is not None:
+            x = x + delta
+        stats = {k: stats[k] + st[k] for k in stats}
+    return x, stats
 
 
 # -- caches -------------------------------------------------------------------
@@ -140,9 +161,9 @@ def block_prefill(params: Dict, cfg: ModelConfig, x: torch.Tensor,
             cache[f"sub{i}"]["conv"].copy_(mc["conv"])
             cache[f"sub{i}"]["ssm"].copy_(mc["ssm"])
         x = x + o
-        if ffn == "dense":
-            h = rms_norm(x, sub["ln2"]["scale"], cfg.rms_eps)
-            x = x + mlp(sub["ffn"], h)
+        delta, _ = _apply_ffn(sub, cfg, ffn, x)
+        if delta is not None:
+            x = x + delta
     return x, cache
 
 
@@ -161,9 +182,9 @@ def block_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
             o, _ = mamba_lib.mamba_decode(sub["mixer"], cfg, h,
                                           cache[f"sub{i}"])
         x = x + o
-        if ffn == "dense":
-            h = rms_norm(x, sub["ln2"]["scale"], cfg.rms_eps)
-            x = x + mlp(sub["ffn"], h)
+        delta, _ = _apply_ffn(sub, cfg, ffn, x)
+        if delta is not None:
+            x = x + delta
     return x, cache
 
 

@@ -28,9 +28,11 @@ def init_rms_norm(dim: int, dtype=torch.float32, device="cuda",
 
 def init_normal(gen: torch.Generator, shape: tuple, std: float, dtype,
                 device) -> torch.Tensor:
-    """Normal(0, std) drawn in fp32 from ``gen``, then cast to ``dtype``."""
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w * std).to(dtype)
+    """Normal(0, std) drawn from ``gen`` in place into the leaf: no
+    temporary, so a stacked leaf of tens of GB (llava-next-34b's MLP, the
+    experts of deepseek-moe-16b) needs only its own memory."""
+    w = torch.empty(shape, dtype=dtype, device=device)
+    return w.normal_(0.0, std, generator=gen)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Model assembly: embeddings + stacked blocks + head.
 
 Mirrors ``Model.init_params``, ``forward``, ``init_cache``, ``prefill``
-and ``decode_step`` of the JAX package's ``models/model.py``.  Parameters
+and ``decode_step`` of the JAX package's ``models/model.py`` for every
+family (``loss`` comes with training).  Parameters
 are a nested dict with the JAX pytree's layout: ``{"embed": {"table"},
 "blocks": {...stacked...}, "final_norm": {"scale"}, "head": {"w"}}``; the
 cache is a nested dict stacked ``[num_blocks, ...]`` the same way.
@@ -35,8 +36,9 @@ class Model:
                     device: Union[str, torch.device] = "cuda") -> Dict:
         """Random parameters drawn on ``device`` from a generator seeded
         with ``seed`` (the JAX package's distributions and scales; the
-        Mamba2 leaves that JAX keeps in fp32 stay fp32 whatever
-        ``dtype``)."""
+        Mamba2 and router leaves that JAX keeps in fp32 stay fp32 whatever
+        ``dtype``).  Embedding-input models keep a token table too, for
+        decode."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         cfg = self.cfg
@@ -48,17 +50,28 @@ class Model:
             "head": init_unembed(gen, cfg.d_model, cfg.vocab_size, dtype, dev),
         }
 
+    @staticmethod
+    def _embed_in(params: Dict, tokens: Optional[torch.Tensor],
+                  embeds: Optional[torch.Tensor]) -> torch.Tensor:
+        return embeds if embeds is not None else embed(params["embed"],
+                                                       tokens)
+
     def forward(self, params: Dict, tokens: Optional[torch.Tensor] = None,
-                embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """tokens [B, S] (or embeds [B, S, d]) -> logits [B, S, vocab]."""
-        x = embeds if embeds is not None else embed(params["embed"], tokens)
+                embeds: Optional[torch.Tensor] = None) -> tuple:
+        """tokens [B, S] (or embeds [B, S, d]) -> (logits [B, S, vocab],
+        router stats summed over blocks as 0-d fp32 tensors: ``aux_loss``,
+        ``router_z``, ``dropped_frac``; zero without an MoE sublayer)."""
+        x = self._embed_in(params, tokens, embeds)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
+        stats = {k: torch.zeros((), dtype=torch.float32, device=x.device)
+                 for k in blk.ZERO_STATS}
         for i in range(self.cfg.num_blocks):
-            x = blk.block_forward(blk.block_params(params["blocks"], i),
-                                  self.cfg, x, positions)
+            x, st = blk.block_forward(blk.block_params(params["blocks"], i),
+                                      self.cfg, x, positions)
+            stats = {k: stats[k] + st[k] for k in stats}
         x = rms_norm(x, params["final_norm"]["scale"], self.cfg.rms_eps)
-        return unembed(params["head"], x)
+        return unembed(params["head"], x), stats
 
     # -- decode path -----------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -68,13 +81,14 @@ class Model:
         return blk.init_stacked_cache(self.cfg, batch, max_len, dtype,
                                       resolve_device(device))
 
-    def prefill(self, params: Dict, tokens: torch.Tensor, cache: Dict,
-                impl: str = "auto") -> tuple:
-        """tokens [B, S]: a full-sequence pass filling ``cache`` (from
-        :meth:`init_cache`, in place); returns (last-position logits
-        [B, 1, vocab], cache).  ``impl`` picks the blocks' kernels (K1 for
-        attention, K3 for the SSD scan)."""
-        x = embed(params["embed"], tokens)
+    def prefill(self, params: Dict, tokens: Optional[torch.Tensor] = None,
+                embeds: Optional[torch.Tensor] = None,
+                cache: Optional[Dict] = None, impl: str = "auto") -> tuple:
+        """tokens [B, S] (or embeds [B, S, d]): a full-sequence pass
+        filling ``cache`` (from :meth:`init_cache`, in place); returns
+        (last-position logits [B, 1, vocab], cache).  ``impl`` picks the
+        blocks' kernels (K1 for attention, K3 for the SSD scan)."""
+        x = self._embed_in(params, tokens, embeds)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
         for i in range(self.cfg.num_blocks):

@@ -70,9 +70,11 @@ class LocalPipelineExecutor:
     @torch.inference_mode()
     def stage_fn(self, x: torch.Tensor, positions: torch.Tensor, lo: int,
                  hi: int) -> torch.Tensor:
-        """Blocks ``[lo, hi)`` over ``x`` (bounds are run-time values)."""
+        """Blocks ``[lo, hi)`` over ``x`` (bounds are run-time values); the
+        blocks' router statistics are dropped, as the JAX stage_fn drops
+        them."""
         for i in range(lo, hi):
-            x = blk.block_forward(self._blocks[i], self.cfg, x, positions)
+            x, _ = blk.block_forward(self._blocks[i], self.cfg, x, positions)
         return x
 
     # -- warmup ---------------------------------------------------------------

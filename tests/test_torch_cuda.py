@@ -18,10 +18,12 @@ from repro_torch.kernels.cases import (  # noqa: E402
     BATCHED_MAIN_CASES,
     DECODE_CASES,
     DECODE_CORNER_CASES,
+    DECODE_FAMILY_MAIN_CASES,
     DECODE_MAIN_CASE,
     DECODE_MAIN_RMS_LIMIT,
     DECODE_MAIN_TOLERANCE,
     DECODE_RAGGED_CASES,
+    FAMILY_MAIN_CASES,
     FLASH_CASES,
     MAIN_CASES,
     MAIN_RMS_LIMIT,
@@ -30,6 +32,7 @@ from repro_torch.kernels.cases import (  # noqa: E402
     SSD_BATCHED_MAIN_CASE,
     SSD_CASES,
     SSD_CORNER_CASES,
+    SSD_FAMILY_MAIN_CASES,
     SSD_MAIN_CASE,
     SSD_MAIN_RMS_LIMIT,
     SSD_MAIN_TOLERANCE,
@@ -148,6 +151,24 @@ def test_kernel_matches_plain_version_at_batched_main_shapes(card, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", FAMILY_MAIN_CASES, ids=case_id)
+def test_kernel_matches_plain_version_at_family_shapes(card, case):
+    """The MoE and embedding-input families' attention at their published
+    widths (MHA, D 80 bidirectional, group 7 at S 2944, a window that
+    bites), on the tensor-core kernel, at the main limits."""
+    B, Hq, Hkv, S, D, causal, window, dtype = case
+    q, k, v = _inputs([(B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D)], dtype,
+                      seed=10)
+    n = flash_attention.tensor_core_launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              impl="cuda")
+    torch.cuda.synchronize()
+    assert flash_attention.tensor_core_launches == n + 1
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    _assert_close_by_rms(got, want, MAIN_TOLERANCE, MAIN_RMS_LIMIT)
+
+
+@pytest.mark.cuda
 def test_bf16_kernel_rejects_misaligned_views(card):
     """TMA needs strides that are multiples of 16 bytes: a view that breaks
     the rule is refused, never read wrong."""
@@ -181,11 +202,44 @@ def test_model_forward_on_card_matches_cpu(card):
     tokens = torch.as_tensor(
         np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 96)))
     with torch.inference_mode():
-        want = Model(cfg).forward(params, tokens)
+        want, _ = Model(cfg).forward(params, tokens)
         n = flash_attention.launches
-        got = Model(cfg).forward(_to_card(params), tokens.cuda())
+        got, _ = Model(cfg).forward(_to_card(params), tokens.cuda())
     assert flash_attention.launches == n + cfg.num_layers
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mixtral-8x22b",
+                                  "jamba-1.5-large-398b", "llava-next-34b",
+                                  "hubert-xlarge"])
+def test_family_forward_on_card_matches_cpu(card, arch):
+    """The smoke configs of the MoE and embedding-input families in fp32:
+    logits and router statistics on the card against the CPU, K1 once per
+    attention sublayer and K3 once per Mamba2 sublayer."""
+    cfg = get_smoke_config(arch)
+    params = Model(cfg).init_params(0, device="cpu")
+    rng = np.random.default_rng(2)
+    if cfg.embedding_inputs:
+        inputs = dict(embeds=torch.as_tensor(
+            rng.standard_normal((2, 96, cfg.d_model)).astype(np.float32)
+            * cfg.d_model ** -0.5))
+    else:
+        inputs = dict(tokens=torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (2, 96))))
+    with torch.inference_mode():
+        want, want_stats = Model(cfg).forward(params, **inputs)
+        n, m = flash_attention.launches, ssd_scan.launches
+        got, stats = Model(cfg).forward(
+            _to_card(params), **{k: v.cuda() for k, v in inputs.items()})
+    assert flash_attention.launches == n + cfg.num_blocks \
+        * cfg.layer_pattern.count("attn")
+    assert ssd_scan.launches == m + cfg.num_blocks \
+        * cfg.layer_pattern.count("mamba")
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    for k, v in stats.items():
+        torch.testing.assert_close(v.cpu(), want_stats[k], atol=1e-4,
+                                   rtol=1e-4)
 
 
 @pytest.mark.cuda
@@ -206,8 +260,8 @@ def test_serving_runs_every_block_through_kernel(card):
         (x,) = _inputs([(1, 64, cfg.d_model)], "float32", seed=4)
         pos = torch.arange(64, device="cuda").expand(1, 64)
         torch.testing.assert_close(
-            blk.block_forward(bp, cfg, x, pos),
-            blk.block_forward(bp, cfg, x, pos, impl="ref"),
+            blk.block_forward(bp, cfg, x, pos)[0],
+            blk.block_forward(bp, cfg, x, pos, impl="ref")[0],
             atol=1e-4, rtol=1e-4)
 
 
@@ -267,6 +321,21 @@ def test_ssd_kernel_matches_plain_version_at_batched_main_shape(card, slow):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_FAMILY_MAIN_CASES, ids=ssd_case_id)
+@pytest.mark.parametrize("slow", [False, True], ids=["jax_dt", "slow_decay"])
+def test_ssd_kernel_matches_plain_version_at_family_shapes(card, case, slow):
+    """jamba's Mamba2 sublayers at its published width (H 256) and at its
+    smoke width (N 32, chunk 32), at the main limits."""
+    b, S, H, P, N, chunk, dtype = case
+    ins = _ssd_inputs(b, S, H, P, N, dtype, seed=11, slow=slow)
+    y, state = ops.ssd_scan(*ins, chunk=chunk, impl="cuda")
+    y_ref, s_ref = ssd_scan_ref(*ins)
+    _assert_close_by_rms(y, y_ref, SSD_MAIN_TOLERANCE, SSD_MAIN_RMS_LIMIT)
+    assert max_ratio(state, s_ref) < ssd_limit("float32")
+    assert _rms(state - s_ref) <= SSD_STATE_RMS_LIMIT * _rms(s_ref)
+
+
+@pytest.mark.cuda
 def test_ssd_kernel_depends_on_chunk_only_through_rounding(card):
     ins = _ssd_inputs(1, 300, 4, 64, 128, "float32", seed=1)
     y1, s1 = ops.ssd_scan(*ins, chunk=256, impl="cuda")
@@ -310,6 +379,25 @@ def test_decode_kernel_main_case_holds_over_draws(card, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_FAMILY_MAIN_CASES, ids=decode_case_id)
+def test_decode_kernel_matches_plain_version_at_family_shapes(card, case):
+    """deepseek (MHA), llava and mixtral (past its window) decode, read
+    strided from a [B, S, Hkv, D] cache, at the main limits."""
+    B, Hq, Hkv, S, D, idx, window, dtype = case
+    q, cache_k, cache_v = _inputs([(B, Hq, D), (B, S, Hkv, D),
+                                   (B, S, Hkv, D)], dtype, seed=12)
+    k, v = cache_k.transpose(1, 2), cache_v.transpose(1, 2)
+    index = torch.tensor(idx, dtype=torch.int32, device="cuda")
+    n = decode_attention.launches
+    got = ops.decode_attention(q, k, v, index, window=window, impl="cuda")
+    torch.cuda.synchronize()
+    assert decode_attention.launches == n + 1
+    _assert_close_by_rms(got, decode_attention_ref(q, k, v, idx,
+                                                   window=window),
+                         DECODE_MAIN_TOLERANCE, DECODE_MAIN_RMS_LIMIT)
+
+
+@pytest.mark.cuda
 def test_decode_kernel_ignores_stale_slots_and_reads_cache_in_place(card):
     B, Hq, Hkv, S, D = 1, 32, 8, 512, 128
     q, cache_k, cache_v = _inputs([(B, Hq, D), (B, S, Hkv, D),
@@ -327,7 +415,9 @@ def test_decode_kernel_ignores_stale_slots_and_reads_cache_in_place(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-370m",
+                                  "deepseek-moe-16b", "mixtral-8x22b",
+                                  "jamba-1.5-large-398b"])
 def test_prefill_decode_on_card_match_cpu(card, arch):
     cfg = get_smoke_config(arch)
     model = Model(cfg)

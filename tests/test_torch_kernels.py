@@ -30,16 +30,19 @@ from repro_torch.models import mamba2 as port_mamba  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
     DECODE_CASES,
     DECODE_CORNER_CASES,
+    DECODE_FAMILY_MAIN_CASES,
     DECODE_MAIN_CASE,
     DECODE_MAIN_RMS_LIMIT,
     DECODE_MAIN_TOLERANCE,
     DECODE_RAGGED_CASES,
+    FAMILY_MAIN_CASES,
     FLASH_CASES,
     MAIN_RMS_LIMIT,
     MAIN_TOLERANCE,
     RAGGED_CASES,
     SSD_CASES,
     SSD_CORNER_CASES,
+    SSD_FAMILY_MAIN_CASES,
     SSD_MAIN_CASE,
     SSD_MAIN_RMS_LIMIT,
     SSD_MAIN_TOLERANCE,
@@ -650,3 +653,49 @@ def test_ssd_tensor_core_emulation_matches_jax(case):
             *(jnp.asarray(t.float().numpy()) for t in tin), chunk=chunk)
         assert max_ratio(y.float().numpy(), y_model) < ssd_limit(dtype)
         assert max_ratio(state.numpy(), s_model) < ssd_limit("float32")
+
+
+# The MoE and embedding-input families' shapes, as each model's attention
+# and Mamba2 sublayers hand them to the kernels.
+FAMILY_SHAPES = {
+    "deepseek-moe-16b": (16, 16, 128, True, None),
+    "hubert-xlarge": (16, 16, 80, False, None),
+    "llava-next-34b": (56, 8, 128, True, None),
+    "mixtral-8x22b": (48, 8, 128, True, 4096),
+    "jamba-1.5-large-398b": (64, 8, 128, True, None),
+}
+
+
+@pytest.mark.parametrize("case", FAMILY_MAIN_CASES, ids=case_id)
+def test_family_flash_cases_are_well_formed(case):
+    """bf16 (the tensor-core route), a whole GQA group, a window below S,
+    and the heads of one of the configs they stand for."""
+    from repro_torch.configs import get_config
+    B, Hq, Hkv, S, D, causal, window, dtype = case
+    assert dtype == "bfloat16" and D % 8 == 0 and Hq % Hkv == 0
+    assert window is None or 1 <= window < S
+    assert any((Hq, Hkv, D, causal, window) == shape
+               and (cfg := get_config(arch)).num_heads == Hq
+               and cfg.num_kv_heads == Hkv and cfg.head_dim == D
+               and cfg.causal == causal and cfg.sliding_window == window
+               for arch, shape in FAMILY_SHAPES.items())
+
+
+@pytest.mark.parametrize("case", DECODE_FAMILY_MAIN_CASES, ids=decode_case_id)
+def test_family_decode_cases_are_well_formed(case):
+    B, Hq, Hkv, S, D, index, window, dtype = case
+    assert dtype == "bfloat16" and D % 8 == 0 and Hq % Hkv == 0
+    assert 0 <= index < S
+    assert window is None or 1 <= window <= index     # the window bites
+
+
+@pytest.mark.parametrize("case", SSD_FAMILY_MAIN_CASES, ids=ssd_case_id)
+def test_family_ssd_cases_are_well_formed(case):
+    from repro_torch.configs import get_config, get_smoke_config
+    b, S, H, P, N, chunk, dtype = case
+    assert dtype == "bfloat16" and N % 16 == 0 and 1 <= chunk <= S
+    widths = [(c.ssm.num_heads(c.d_model), c.ssm.head_dim, c.ssm.d_state,
+               c.ssm.chunk_size)
+              for c in (get_config("jamba-1.5-large-398b"),
+                        get_smoke_config("jamba-1.5-large-398b"))]
+    assert (H, P, N, chunk) in widths

@@ -10,6 +10,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.configs import ARCH_IDS as JAX_ARCH_IDS  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
 from repro.models import Model as JaxModel  # noqa: E402
@@ -17,7 +18,8 @@ from repro.models import attention as jax_attn  # noqa: E402
 from repro.models import blocks as jax_blk  # noqa: E402
 from repro.models import layers as jax_layers  # noqa: E402
 from repro.models import mamba2 as jax_mamba  # noqa: E402
-from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, MoEConfig, get_config  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
@@ -29,6 +31,9 @@ from repro_torch.models import mamba2 as mamba  # noqa: E402
 # tests/test_pipeline.py's tolerance for fp32 logits.
 TOL = dict(atol=1e-4, rtol=1e-4)
 ARCHS = ["qwen3-4b", "qwen3-8b", "qwen3-32b", "qwen2-0.5b", "mamba2-370m"]
+# The MoE and embedding-input families.
+FAMILIES = ["deepseek-moe-16b", "mixtral-8x22b", "jamba-1.5-large-398b",
+            "llava-next-34b", "hubert-xlarge"]
 # tests/test_models_smoke.py's tolerance for prefill / decode logits.
 DECODE_TOL = dict(atol=2e-3, rtol=1e-3)
 
@@ -42,24 +47,31 @@ def _jax_params(cfg, seed=0):
     return params, jax.tree.map(np.asarray, params)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + FAMILIES)
 def test_configs_are_copies(arch):
     for port, ref in ((get_config(arch), jax_get_config(arch)),
                       (get_smoke_config(arch), jax_smoke(arch))):
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
         assert port.num_blocks == ref.num_blocks
         assert port.param_count() == ref.param_count()
+        assert port.active_param_count() == ref.active_param_count()
         assert port.block_has_attn() == ref.block_has_attn()
         assert port.block_has_mamba() == ref.block_has_mamba()
+        assert ([port.sublayer_is_moe(i) for i in range(8)]
+                == [ref.sublayer_is_moe(i) for i in range(8)])
+        assert (blk._sublayer_kinds(port)
+                == jax_blk._sublayer_kinds(ref))
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mixtral-8x22b",
-                                  "hubert-xlarge"])
-def test_unported_arch_names_its_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config(arch)
-    with pytest.raises(KeyError):
-        get_smoke_config("no-such-arch")
+def test_arch_ids_are_the_jax_packages():
+    assert ARCH_IDS == JAX_ARCH_IDS
+    assert sorted(ARCHS + FAMILIES) == sorted(ARCH_IDS)
+
+
+@pytest.mark.parametrize("get", [get_config, get_smoke_config])
+def test_unknown_arch_raises_key_error(get):
+    with pytest.raises(KeyError, match="unknown arch"):
+        get("no-such-arch")
 
 
 def test_rms_norm_rope_mlp_match_jax():
@@ -138,17 +150,48 @@ def test_model_forward_matches_jax(arch, layers_):
     want, _ = JaxModel(cfg).forward(jp, tokens=jnp.asarray(tokens))
     port_cfg = dataclasses.replace(get_smoke_config(arch),
                                    num_layers=cfg.num_layers)
-    got = Model(port_cfg).forward(params_from_jax(np_params, device="cpu"),
-                                  tokens=torch.from_numpy(tokens))
+    got, stats = Model(port_cfg).forward(
+        params_from_jax(np_params, device="cpu"),
+        tokens=torch.from_numpy(tokens))
     np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
+    assert {k: float(v) for k, v in stats.items()} == dict(blk.ZERO_STATS)
     # ...and from embeddings (the embedding-input path of Model.forward)
     x = np.asarray(jp["embed"]["table"])[tokens]
-    got_e = Model(port_cfg).forward(params_from_jax(np_params, device="cpu"),
-                                    embeds=torch.from_numpy(x))
+    got_e, _ = Model(port_cfg).forward(
+        params_from_jax(np_params, device="cpu"), embeds=torch.from_numpy(x))
     np.testing.assert_allclose(got_e.numpy(), _np(want), **TOL)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "qwen2-0.5b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_forward_matches_jax(arch):
+    """Logits and router statistics of every new family's smoke config;
+    llava and hubert through ``embeds=`` (their frontends are stubs)."""
+    cfg = jax_smoke(arch)
+    jp, np_params = _jax_params(cfg)
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 40))
+    params = params_from_jax(np_params, device="cpu")
+    model = Model(get_smoke_config(arch))
+    if cfg.embedding_inputs:
+        x = np.random.default_rng(4).standard_normal(
+            (2, 40, cfg.d_model)).astype(np.float32) * cfg.d_model ** -0.5
+        want, want_stats = JaxModel(cfg).forward(jp, embeds=jnp.asarray(x))
+        got, stats = model.forward(params, embeds=torch.from_numpy(x))
+    else:
+        want, want_stats = JaxModel(cfg).forward(jp,
+                                                 tokens=jnp.asarray(tokens))
+        got, stats = model.forward(params, tokens=torch.from_numpy(tokens))
+    np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
+    assert stats.keys() == want_stats.keys()
+    for k, v in stats.items():
+        assert v.dtype == torch.float32 and v.dim() == 0
+        np.testing.assert_allclose(float(v), float(want_stats[k]),
+                                   err_msg=k, **TOL)
+    if cfg.moe is not None:
+        assert float(stats["aux_loss"]) > 0
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "qwen2-0.5b", "mamba2-370m"]
+                         + FAMILIES)
 def test_init_params_mirror_jax_tree(arch):
     """Same nested layout, shapes and init scales as the JAX init."""
     cfg = jax_smoke(arch)
@@ -379,6 +422,73 @@ def test_prefill_decode_match_jax_and_forward(arch, window):
                                    **DECODE_TOL)
         if step == 0:
             np.testing.assert_allclose(lg.numpy(), _np(jlg), **DECODE_TOL)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mixtral-8x22b",
+                                  "llava-next-34b", "jamba-1.5-large-398b"])
+def test_family_prefill_decode_match_jax_and_forward(arch):
+    """Prefill + two decode steps of the new decoder families against the
+    JAX package's prefill and decode_step and against the port's forward,
+    at DECODE_TOL (llava prefills from embeddings).  As
+    tests/test_models_smoke.py does, the capacity is raised so that no
+    (token, choice) pair is dropped: drops depend on the group, which
+    differs between a prefill and a forward over more tokens."""
+    B, S = 2, 64
+    cfg = jax_smoke(arch)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.num_experts)
+            / cfg.moe.num_experts_per_tok))
+    port_cfg = dataclasses.replace(
+        get_smoke_config(arch),
+        moe=None if cfg.moe is None else MoEConfig(
+            **dataclasses.asdict(cfg.moe)))
+    model = JaxModel(cfg)
+    jp, np_params = _jax_params(cfg, seed=1)
+    toks = np.random.default_rng(9).integers(0, cfg.vocab_size, (B, S + 2))
+    table = np.asarray(np_params["embed"]["table"])
+    if cfg.embedding_inputs:
+        jpre = dict(embeds=jnp.asarray(table[toks[:, :S]]))
+        pre = dict(embeds=torch.from_numpy(table[toks[:, :S]]))
+        full_in = dict(embeds=torch.from_numpy(table[toks]))
+    else:
+        jpre = dict(tokens=jnp.asarray(toks[:, :S]))
+        pre = dict(tokens=torch.from_numpy(toks[:, :S]))
+        full_in = dict(tokens=torch.from_numpy(toks))
+    jcache = model.init_cache(B, S + 8, jnp.float32)
+    jlp, jcache = model.prefill(jp, cache=jcache, **jpre)
+    jlg, _ = model.decode_step(jp, jnp.asarray(toks[:, S:S + 1]), jcache,
+                               jnp.array(S, jnp.int32))
+
+    port = Model(port_cfg)
+    params = params_from_jax(np_params, device="cpu")
+    full, stats = port.forward(params, **full_in)
+    if cfg.moe is not None:
+        assert float(stats["dropped_frac"]) == 0
+    cache = port.init_cache(B, S + 8, torch.float32, device="cpu")
+    lp, cache = port.prefill(params, cache=cache, **pre)
+    assert tuple(lp.shape) == (B, 1, cfg.vocab_size)
+    np.testing.assert_allclose(lp.numpy(), _np(jlp), **DECODE_TOL)
+    np.testing.assert_allclose(lp[:, 0].numpy(), full[:, S - 1].numpy(),
+                               **DECODE_TOL)
+    t = torch.from_numpy(toks)
+    for step in range(2):
+        lg, cache = port.decode_step(params, t[:, S + step:S + step + 1],
+                                     cache, S + step)
+        np.testing.assert_allclose(lg[:, 0].numpy(),
+                                   full[:, S + step].numpy(), **DECODE_TOL)
+        if step == 0:
+            np.testing.assert_allclose(lg.numpy(), _np(jlg), **DECODE_TOL)
+
+
+def test_init_normal_draws_in_place():
+    """The init draws straight into the leaf: the dtype asked for, the
+    scale asked for, no fp32 copy of a bf16 leaf."""
+    w = layers.init_normal(torch.Generator().manual_seed(0), (4, 64, 256),
+                           0.05, torch.bfloat16, "cpu")
+    assert w.dtype == torch.bfloat16 and tuple(w.shape) == (4, 64, 256)
+    assert abs(float(w.float().std()) / 0.05 - 1) < 0.05
+    assert abs(float(w.float().mean())) < 5e-3
 
 
 def test_bridge_and_init_keep_ssm_leaves_fp32():

@@ -13,6 +13,7 @@ import numpy as np  # noqa: E402
 from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
 from repro.models import Model as JaxModel  # noqa: E402
 from repro.pipeline import (  # noqa: E402
+    LocalPipelineExecutor as JaxLocalPipelineExecutor,
     MeasuredTimeSource as JaxMeasuredTimeSource,
     stage_bounds as jax_stage_bounds,
 )
@@ -63,6 +64,33 @@ def test_executor_matches_jax_model_on_mamba2(mamba_setup, config):
     logits, times = ex.run_query(torch.from_numpy(tokens), config)
     np.testing.assert_allclose(logits.numpy(), ref, atol=1e-4, rtol=1e-4)
     assert times.shape == (len(config),)
+
+
+@pytest.mark.parametrize("arch,blocks", [("deepseek-moe-16b", 2),
+                                         ("jamba-1.5-large-398b", 2)])
+def test_executor_matches_jax_run_query_on_moe(arch, blocks):
+    """Stages split [1, 1] over MoE blocks (jamba's smoke config is one
+    block: two here) against the JAX executor's run_query on the same
+    weights; the router statistics the blocks return are dropped, as the
+    JAX stage function drops them."""
+    jcfg = jax_smoke(arch)
+    jcfg = dataclasses.replace(
+        jcfg, num_layers=blocks * len(jcfg.layer_pattern))
+    jp = JaxModel(jcfg).init_params(jax.random.PRNGKey(3), jnp.float32)
+    tokens = np.random.default_rng(6).integers(0, jcfg.vocab_size, (1, 48))
+    want, _ = JaxLocalPipelineExecutor(jcfg, jp).run_query(
+        jnp.asarray(tokens), [1, 1])
+    cfg = dataclasses.replace(get_smoke_config(arch),
+                              num_layers=jcfg.num_layers)
+    ex = LocalPipelineExecutor(
+        cfg, params_from_jax(jax.tree.map(np.asarray, jp), device="cpu"),
+        device="cpu")
+    got, times = ex.run_query(torch.from_numpy(tokens), [1, 1])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+    assert times.shape == (2,) and np.all(times > 0)
+    whole, _ = ex.run_query(torch.from_numpy(tokens), [2])
+    np.testing.assert_array_equal(whole.numpy(), got.numpy())
 
 
 def test_stage_bounds_and_next_pow2_match_jax():

@@ -120,6 +120,10 @@ def test_reset_policy_restarts_balanced(setup):
     ("qwen2-0.5b", ["--queries", "12", "--blocks", "4", "--seq", "16",
                     "--freq", "4", "--duration", "4"]),
     ("mamba2-370m", ["--blocks", "2", "--queries", "8", "--seq", "32"]),
+    ("deepseek-moe-16b", ["--blocks", "4", "--queries", "8", "--seq", "32",
+                          "--freq", "4", "--duration", "4"]),
+    ("jamba-1.5-large-398b", ["--blocks", "2", "--queries", "6", "--seq",
+                              "32", "--eps", "2"]),
 ])
 def test_serve_cli_on_cpu_prints_summary(arch, args):
     env = {"PYTHONPATH": str(ROOT / "src"),
@@ -133,3 +137,17 @@ def test_serve_cli_on_cpu_prints_summary(arch, args):
     s = json.loads(r.stdout.strip().splitlines()[-1])
     blocks = int(args[args.index("--blocks") + 1])
     assert sum(s["final_config"]) == blocks and s["mean_latency_s"] > 0
+
+
+@pytest.mark.parametrize("arch", ["llava-next-34b", "hubert-xlarge"])
+def test_serve_cli_refuses_embedding_input_archs(arch):
+    """As the JAX CLI does: the serve demo feeds token ids."""
+    env = {"PYTHONPATH": str(ROOT / "src"),
+           "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
+           "HOME": os.environ.get("HOME", "/tmp")}
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--arch", arch, "--queries", "2"],
+        capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=120)
+    assert r.returncode != 0
+    assert "serve demo uses token models" in r.stderr
