@@ -3,8 +3,8 @@ against their plain versions.
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and the script exits nonzero.  Each
-phase prints its wall time.
+Phases, in the order they run (11 runs between 9 and 10); any failure
+raises and the script exits nonzero.  Each phase prints its wall time.
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions.
    There must be a CUDA device.
@@ -96,6 +96,30 @@ phase prints its wall time.
    over one query (``torch.profiler``), and the logits of a batch's padded
    rows against each query served alone, which must stay within
    BATCHED_LOGITS_RMS_LIMIT.
+11. the rest of the scheduler side, on phase 6's qwen3-4b and traffic
+   (run right after phase 9, while qwen3-4b is loaded), every serve
+   through ``repro_torch.api.run(RunSpec(engine=...))`` with K1 on its
+   tensor-core kernel once per block and query:
+   a. the hybrid policy: it must rebalance and move blocks off the slowed
+      stage; printed beside phase 6's ODIN run (rebalances, serial_frac,
+      mean latency, committed configs);
+   b. the DP oracle live, ``OraclePolicy`` with a solver built here
+      (``optimal_partition`` over a database with one column per EP, the
+      estimated block times times that EP's slowdown): serial_frac must be
+      0 and blocks must move off the slowed stage; its bottleneck is
+      printed beside 11a's;
+   c. ODIN on a modelled mesh of 8 devices (``MeshOdinExplorer``), a
+      collective cost of a quarter of the measured mean block time, and a
+      3x collective contention window on top of the compute slowdown:
+      every assignment must sum to 8 with each stage at least 1 and every
+      collective share lie in [0, 1); the modelled bottleneck is printed
+      beside the host-clock service latency;
+   d. ``measure_block_times`` over the 36 blocks at 1 x 1024 tokens makes
+      a ``transformer_database``, simulated for 2000 queries under odin,
+      lls, hybrid, oracle and none (each mean throughput as a share of the
+      oracle's, which no policy may beat; odin's chunked and scalar runs
+      must be equal), then under odin and oracle on a mesh of 8.
+   It prints K1's launches in phase 11.
 10. the MoE and embedding-input families, each model alone on the card
    (the earlier phases' parameters are freed first), with each model's
    peak device memory:
@@ -131,7 +155,7 @@ phase prints its wall time.
    same inputs, and with the plain attention, whose logits the timed
    run's are held against (DECODE_RMS_LIMIT).  Forwards and prefills run
    the same check of every K1 and K3 launch against the plain version.
-11. the card line again, one ``{"kernels": [...]}`` line, and last
+12. the card line again, one ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM data-sheet peaks: 989 TFLOP/s dense bf16 on the
@@ -155,6 +179,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import api  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.configs.llava_next_34b import NUM_PATCH_TOKENS  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -203,10 +228,20 @@ from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import blocks as blk  # noqa: E402
 from repro_torch.models import mamba2 as mamba_lib  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    InterferenceEvent,
+    LayerDatabase,
+    generate_events,
+    optimal_partition,
+    transformer_database,
+)
+from repro_torch.core.mesh import MeshSpec  # noqa: E402
 from repro_torch.models.layers import rms_norm  # noqa: E402
+from repro_torch.pipeline import MeasuredTimeSource  # noqa: E402
 from repro_torch.pipeline.executor import next_pow2  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 from repro_torch.serving import engine as engine_lib  # noqa: E402
+from repro_torch.schedulers import OraclePolicy  # noqa: E402
 from repro_torch.schedulers.runtime import RuntimeStep  # noqa: E402
 from repro_torch.workloads import make_lengths, resolve_batching  # noqa: E402
 
@@ -283,6 +318,18 @@ HUBERT_QUERIES = 12
 LLAVA_TEXT, LLAVA_CACHE = 64, 4096
 MIXTRAL_BLOCKS, MIXTRAL_SEQ, MIXTRAL_CACHE = 4, 4608, 8192
 FAMILY_DECODE_STEPS = 16
+
+# Phase 11: the rest of the scheduler side over phase 6's traffic.  11c's
+# collective cost per block is MESH_COLL_FRACTION of the measured mean
+# clean block time (11a's estimates), on MESH_DEVICES modelled devices, and
+# a coll_factor_schedule multiplies collective time by MESH_CF for queries
+# MESH_CF_FROM..MESH_CF_TO, inside the compute slowdown.  11d simulates
+# SIM_QUERIES queries over a database built from block times measured here.
+MESH_DEVICES, MESH_COLL_FRACTION = 8, 0.25
+MESH_CF_FROM, MESH_CF_TO, MESH_CF = 12, 20, 3.0
+SIM_QUERIES = 2000
+SIM_POLICIES = ("odin", "lls", "hybrid", "oracle", "none")
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -895,16 +942,7 @@ def serve_under_odin(cfg, params, counter, kernel: str,
         raise AssertionError(f"{kernel} launched {launches} times, expected "
                              f"{cfg.num_blocks} x {num_queries}")
 
-    # Outputs: finite logits of the right shape, independent of the split.
-    with torch.inference_mode():
-        a, _ = eng.executor.run_query(queries[0], start_config)
-        b, _ = eng.executor.run_query(queries[0], trace.configs[-1])
-    if tuple(a.shape) != (1, SEQ, cfg.vocab_size) or not bool(
-            torch.isfinite(a).all()):
-        raise AssertionError(f"bad logits {tuple(a.shape)}")
-    drift = float((a.float() - b.float()).abs().max())
-    if not drift <= 1e-3 * float(a.float().abs().max()):
-        raise AssertionError(f"logits depend on the stage split: {drift}")
+    check_split_logits(eng, queries[0], start_config, trace.configs[-1])
 
     # Where a clean query's time goes (no slowdown, balanced split).
     x, positions = eng.executor.embed_tokens(queries[1])
@@ -923,7 +961,32 @@ def serve_under_odin(cfg, params, counter, kernel: str,
         f"{1e3 * (t2 - t1):.2f} ms; {kernel} {cfg.num_blocks} x "
         f"{per_block_ms:.4f} = {kern:.2f} ms ({100 * kern / (1e3 * (t2 - t0)):.0f}"
         f"% of blocks + head)")
-    return dict(launches=launches, counts=counts, summary=summary)
+    return dict(launches=launches, counts=counts, summary=summary,
+                committed=committed_configs(trace))
+
+
+def check_split_logits(eng, query, config_a, config_b) -> None:
+    """Finite logits of the right shape, independent of the stage split."""
+    cfg = eng.cfg
+    with torch.inference_mode():
+        a, _ = eng.executor.run_query(query, config_a)
+        b, _ = eng.executor.run_query(query, config_b)
+    if tuple(a.shape) != (1, SEQ, cfg.vocab_size) or not bool(
+            torch.isfinite(a).all()):
+        raise AssertionError(f"bad logits {tuple(a.shape)}")
+    drift = float((a.float() - b.float()).abs().max())
+    if not drift <= 1e-3 * float(a.float().abs().max()):
+        raise AssertionError(f"logits depend on the stage split: {drift}")
+
+
+def committed_configs(trace) -> list:
+    """The configs the steady (non-trial) queries ran, in order, each
+    once per stretch."""
+    out = []
+    for c, serial in zip(trace.configs, trace.serial_mask):
+        if not serial and (not out or out[-1] != c):
+            out.append(list(c))
+    return out
 
 
 def init_model(cfg) -> tuple:
@@ -2060,6 +2123,238 @@ def phase_jamba() -> dict:
     return dict(cached=cached, k3=k3)
 
 
+def serve_scheduler(cfg, params, scheduler, label: str,
+                    **engine_kw) -> tuple:
+    """Phase 6's traffic (NUM_QUERIES closed-loop queries of SEQ tokens on
+    4 stages, SLOW_FACTOR on stage SLOW_EP for queries SLOW_FROM..SLOW_TO)
+    through ``api.run(RunSpec(engine=...))``.  Every query must be served
+    on configs that conserve blocks, with K1's tensor-core kernel once per
+    block and query; the logits must not depend on the split."""
+    rng = np.random.default_rng(0)
+    eng = ServingEngine(cfg, params, num_eps=4, scheduler=scheduler,
+                        alpha=3, device="cuda", **engine_kw)
+    eng.executor.warmup(1, SEQ)
+    queries = [torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, SEQ)),
+                               device="cuda")
+               for _ in range(NUM_QUERIES)]
+    start = eng.config
+    reset_counts(flash_attention)
+    t0 = time.perf_counter()
+    trace = api.run(api.RunSpec(engine=eng, queries=queries,
+                                schedule=schedule))
+    wall = time.perf_counter() - t0
+    launches = flash_attention.launches
+    want = cfg.num_blocks * NUM_QUERIES
+    if not launches == flash_attention.tensor_core_launches == want:
+        raise AssertionError(
+            f"{label}: K1 launched {launches} times "
+            f"({flash_attention.tensor_core_launches} on the tensor cores),"
+            f" expected {want}")
+    if len(trace.latencies) != NUM_QUERIES:
+        raise AssertionError(f"{label}: served {len(trace.latencies)} of "
+                             f"{NUM_QUERIES} queries")
+    if any(sum(c) != cfg.num_blocks for c in trace.configs):
+        raise AssertionError(f"{label}: a config lost blocks: "
+                             f"{trace.configs}")
+    check_split_logits(eng, queries[0], start, trace.configs[-1])
+    s = trace.summary()
+    log(f"  {label}: {NUM_QUERIES} queries in {wall:.2f} s, rebalances "
+        f"{trace.num_rebalances}, trials {trace.total_trials}, serial_frac "
+        f"{s['serial_frac']:.3f}, mean latency {s['mean_latency_s']:.4f} s,"
+        f" K1 launches {launches}")
+    log(f"  {label} committed configs: {committed_configs(trace)}")
+    return eng, trace, launches
+
+
+def moved_off_slowed_stage(trace, start: list) -> bool:
+    return min(c[SLOW_EP] for c in trace.configs[SLOW_FROM:SLOW_TO]) < \
+        start[SLOW_EP]
+
+
+def phase_hybrid(cfg, params, odin: dict) -> dict:
+    """11a: the hybrid policy (LLS's move, then ODIN on a plateau)."""
+    eng, trace, launches = serve_scheduler(cfg, params, "hybrid", "hybrid")
+    s, o = trace.summary(), odin["summary"]
+    log(f"  hybrid / phase 6's ODIN: rebalances {s['rebalances']} / "
+        f"{o['rebalances']}, serial_frac {s['serial_frac']:.3f} / "
+        f"{o['serial_frac']:.3f}, mean latency {s['mean_latency_s']:.4f} / "
+        f"{o['mean_latency_s']:.4f} s")
+    log(f"  phase 6's ODIN committed configs: {odin['committed']}")
+    start = eng._initial_config
+    if trace.num_rebalances < 1:
+        raise AssertionError("hybrid never rebalanced")
+    if not moved_off_slowed_stage(trace, start):
+        raise AssertionError(f"hybrid moved no blocks off stage {SLOW_EP}: "
+                             f"{trace.configs[SLOW_FROM:SLOW_TO]}")
+    return dict(engine=eng, trace=trace, launches=launches)
+
+
+def phase_oracle(cfg, params, hybrid: dict) -> dict:
+    """11b: the DP oracle live, with its solver built here from the
+    engine's time source: one database column per EP (the estimated
+    block times times that EP's slowdown), EP e on column e."""
+    def solver(config, source):
+        table = source.block_times[:, None] * source.slowdowns[None, :]
+        n = table.shape[1]
+        db = LayerDatabase(table, [f"ep{e}" for e in range(n)])
+        return optimal_partition(db, list(range(n)), n)[0]
+
+    eng, trace, launches = serve_scheduler(cfg, params, OraclePolicy(solver),
+                                           "oracle")
+    s = trace.summary()
+    changes = sum(a != b for a, b in zip(trace.configs, trace.configs[1:]))
+    heng, htrace = hybrid["engine"], hybrid["trace"]
+    # Both episode configs priced on the hybrid engine's final clean
+    # estimates under the episode's slowdowns.
+    src = MeasuredTimeSource(heng._block_times, schedule(SLOW_TO - 1))
+    ep_o = float(src.stage_times(trace.configs[SLOW_TO - 1]).max())
+    ep_h = float(src.stage_times(htrace.configs[SLOW_TO - 1]).max())
+    log(f"  oracle: serial_frac {s['serial_frac']} (0 expected: its trials "
+        f"are instant), rebalances {trace.num_rebalances} (the oracle's "
+        f"commits cost no serial query and are not counted), "
+        f"{changes} config changes over {NUM_QUERIES} queries")
+    log(f"  final estimated bottleneck: oracle "
+        f"{1e3 * eng.runtime.estimated_bottleneck():.3f} ms, hybrid "
+        f"{1e3 * heng.runtime.estimated_bottleneck():.3f} ms; in the "
+        f"episode (query {SLOW_TO - 1}, hybrid's estimates): oracle "
+        f"{trace.configs[SLOW_TO - 1]} {1e3 * ep_o:.3f} ms, hybrid "
+        f"{htrace.configs[SLOW_TO - 1]} {1e3 * ep_h:.3f} ms")
+    if s["serial_frac"] != 0.0 or trace.total_trials != 0:
+        raise AssertionError(f"the oracle ran serial trials: {s}")
+    if not moved_off_slowed_stage(trace, eng._initial_config):
+        raise AssertionError(f"the oracle moved no blocks off stage "
+                             f"{SLOW_EP}: {trace.configs[SLOW_FROM:SLOW_TO]}")
+    return dict(launches=launches, changes=changes)
+
+
+def coll_schedule(q: int) -> float:
+    return MESH_CF if MESH_CF_FROM <= q < MESH_CF_TO else 1.0
+
+
+def check_mesh_trace(trace, n: int, label: str) -> np.ndarray:
+    """Every assignment on MESH_DEVICES with each stage at least 1, and
+    each query's collective share in [0, 1)."""
+    if trace.mesh_trace is None or len(trace.mesh_trace) != n:
+        raise AssertionError(f"{label}: no mesh trace")
+    bad = [a for a in trace.mesh_trace
+           if sum(a) != MESH_DEVICES or min(a) < 1]
+    if bad:
+        raise AssertionError(f"{label}: invalid assignments {bad[:4]}")
+    fr = np.asarray(trace.collective_fracs, float)
+    if fr.shape != (n,) or not bool(np.all((fr >= 0.0) & (fr < 1.0))):
+        raise AssertionError(f"{label}: collective shares outside [0, 1): "
+                             f"{fr.min()}..{fr.max()}")
+    return fr
+
+
+def phase_mesh(cfg, params, hybrid: dict) -> dict:
+    """11c: ODIN over (boundary, slice) moves (MeshOdinExplorer) on a
+    modelled mesh of MESH_DEVICES devices, with collective contention on
+    top of the compute slowdown.  The card runs every stage as before:
+    the mesh is the scheduler's model over the measured times."""
+    mean_block = float(np.mean(hybrid["engine"]._block_times))
+    mesh = MeshSpec(devices=MESH_DEVICES,
+                    coll_cost=MESH_COLL_FRACTION * mean_block)
+    log(f"  mesh: {MESH_DEVICES} devices, coll_cost {MESH_COLL_FRACTION} x "
+        f"the measured mean clean block time {1e3 * mean_block:.3f} ms = "
+        f"{1e3 * mesh.coll_cost:.4f} ms a block; collective contention "
+        f"{MESH_CF}x for queries {MESH_CF_FROM}..{MESH_CF_TO - 1}")
+    eng, trace, launches = serve_scheduler(
+        cfg, params, "odin", "odin + mesh", mesh=mesh,
+        coll_factor_schedule=coll_schedule)
+    fr = check_mesh_trace(trace, NUM_QUERIES, "11c")
+    dedup = [a for i, a in enumerate(trace.mesh_trace)
+             if i == 0 or a != trace.mesh_trace[i - 1]]
+    modelled = 1.0 / np.asarray(trace.throughputs, float)
+    log(f"  num_mesh_resizes {trace.num_mesh_resizes}, mesh trace "
+        f"{dedup}, collective_fracs mean {fr.mean():.4f} max "
+        f"{fr.max():.4f}")
+    log(f"  per query, median: modelled bottleneck stage "
+        f"{1e3 * float(np.median(modelled)):.3f} ms (the measured stage "
+        f"divided by its devices, plus the collective term); host-clock "
+        f"service latency "
+        f"{1e3 * float(np.median(trace.service_latencies)):.3f} ms (all "
+        f"four stages on the one card)")
+    if trace.num_rebalances < 1:
+        raise AssertionError("ODIN never rebalanced with the mesh armed")
+    return dict(launches=launches, resizes=trace.num_mesh_resizes)
+
+
+def phase_measured_db(cfg, params) -> dict:
+    """11d: block times measured on the card (K1 in every block) make a
+    layer database; the simulator compares the policies over it."""
+    rng = np.random.default_rng(2)
+    eng = ServingEngine(cfg, params, num_eps=4, device="cuda")
+    eng.executor.warmup(1, SEQ)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, SEQ)),
+                             device="cuda")
+    reset_counts(flash_attention)
+    bt = eng.executor.measure_block_times(tokens, repeats=3)
+    launches = flash_attention.launches
+    if not launches == flash_attention.tensor_core_launches == \
+            3 * cfg.num_blocks:
+        raise AssertionError(f"measure_block_times launched K1 {launches} "
+                             f"times, expected 3 x {cfg.num_blocks}")
+    if bt.shape != (cfg.num_blocks,) or not bool(np.all(bt > 0)):
+        raise AssertionError(f"bad block times {bt}")
+    log(f"  block times at 1 x {SEQ} tokens (min of 3, host clock, "
+        f"synchronised): sum {1e3 * bt.sum():.3f} ms, per block min "
+        f"{1e3 * bt.min():.3f} median {1e3 * float(np.median(bt)):.3f} max "
+        f"{1e3 * bt.max():.3f} ms")
+    db = transformer_database(bt, seed=0)
+    events = generate_events(SIM_QUERIES, 4, db.num_scenarios, 10, 10,
+                             seed=0)
+
+    def simulate(name: str, **kw):
+        t0 = time.perf_counter()
+        trace = api.run(api.RunSpec(
+            db=db, num_eps=4, num_queries=SIM_QUERIES,
+            scheduler=api.SchedulerSpec(name=name), **kw))
+        if len(trace.latencies) != SIM_QUERIES or not bool(
+                np.all(np.isfinite(trace.latencies))):
+            raise AssertionError(f"simulation under {name}: bad latencies")
+        return trace, time.perf_counter() - t0
+
+    runs = {name: simulate(name, events=events) for name in SIM_POLICIES}
+    best = runs["oracle"][0].summary()["mean_throughput_qps"]
+    shares = {}
+    for name, (trace, secs) in runs.items():
+        s = trace.summary()
+        shares[name] = s["mean_throughput_qps"] / best
+        log(f"  {name:>6}: mean throughput {s['mean_throughput_qps']:.3f} "
+            f"q/s = {shares[name]:.4f} of the oracle's, serial_frac "
+            f"{s['serial_frac']:.4f}, rebalances {trace.num_rebalances}, "
+            f"trials {trace.total_trials} ({secs:.2f} s)")
+    if max(shares.values()) > 1.0 + 1e-9:
+        raise AssertionError(f"a policy beat the oracle: {shares}")
+    scalar, _ = simulate("odin", events=events,
+                         batching=api.BatchingSpec(chunking=False))
+    if not np.array_equal(scalar.latencies, runs["odin"][0].latencies):
+        raise AssertionError("odin's chunked and scalar simulations differ")
+
+    mesh = MeshSpec(devices=MESH_DEVICES,
+                    coll_cost=MESH_COLL_FRACTION * float(np.mean(bt)))
+    mesh_events = list(events) + [InterferenceEvent(
+        start=SIM_QUERIES // 3, duration=SIM_QUERIES // 4, ep=0,
+        scenario=0, kind="mesh", factor=MESH_CF)]
+    mesh_runs = {name: simulate(name, events=mesh_events, mesh=mesh)[0]
+                 for name in ("odin", "oracle")}
+    mbest = mesh_runs["oracle"].summary()["mean_throughput_qps"]
+    for name, trace in mesh_runs.items():
+        s = trace.summary()
+        fr = check_mesh_trace(trace, SIM_QUERIES, f"11d {name}")
+        log(f"  mesh {name:>6}: mean throughput "
+            f"{s['mean_throughput_qps']:.3f} q/s = "
+            f"{s['mean_throughput_qps'] / mbest:.4f} of the mesh oracle's, "
+            f"serial_frac {s['serial_frac']:.4f}, rebalances "
+            f"{trace.num_rebalances}, mesh resizes "
+            f"{trace.num_mesh_resizes}, collective share mean "
+            f"{fr.mean():.4f}")
+    if mesh_runs["odin"].summary()["mean_throughput_qps"] > mbest * (1 + 1e-9):
+        raise AssertionError("odin beat the mesh oracle")
+    return dict(launches=launches, shares=shares)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
@@ -2123,6 +2418,20 @@ def main() -> None:
     batched = phase("phase 9: batched and open-loop serving at full width",
                     phase_batched, qcfg, qparams, mcfg, mparams,
                     main_k1[(MAX_BATCH, LONG)]["ms"], k3["batched_ms"])
+    hybrid = phase("phase 11a: qwen3-4b under hybrid through api.run",
+                   phase_hybrid, qcfg, qparams, served)
+    oracle = phase("phase 11b: qwen3-4b under the live DP oracle",
+                   phase_oracle, qcfg, qparams, hybrid)
+    meshed = phase("phase 11c: qwen3-4b under ODIN on a modelled mesh",
+                   phase_mesh, qcfg, qparams, hybrid)
+    measured = phase("phase 11d: the simulator over block times measured "
+                     "here", phase_measured_db, qcfg, qparams)
+    k1_phase11 = (hybrid["launches"] + oracle["launches"]
+                  + meshed["launches"] + measured["launches"])
+    log(f"  K1 launches in phase 11: {k1_phase11} = {hybrid['launches']} "
+        f"(11a) + {oracle['launches']} (11b) + {meshed['launches']} (11c) "
+        f"+ {measured['launches']} (11d)")
+    del hybrid
 
     # Phase 10 loads each model alone: the earlier phases' go first.
     del qparams, mparams
@@ -2162,14 +2471,15 @@ def main() -> None:
     k2 = dict(k2, max_abs_err=worst("K2", [k2]))
     k3 = dict(k3, max_abs_err=worst("K3", [k3]))
     # Launches on the main paths: the closed-loop serves (qwen3-4b,
-    # deepseek-moe-16b, hubert-xlarge) and the batched one for K1; the
+    # deepseek-moe-16b, hubert-xlarge), the batched one and phase 11's
+    # serves and block-time measurement for K1; the
     # decode steps of every cached path for K2; the closed-loop and batched
     # serves of mamba2-370m and jamba's forward and prefill for K3.
     rows = [
         ("flash_attention", "flash_attention.py:96",
          served["counts"]["tensor_core_launches"]
          + batched["qwen3-4b"]["launches"] + ds["served"]["launches"]
-         + hub["served"]["launches"], k1),
+         + hub["served"]["launches"] + k1_phase11, k1),
         ("decode_attention", "decode_attention.py:78",
          cached["qwen3-4b"]["launches"] + sum(c["k2"] for c in cached_10),
          k2),

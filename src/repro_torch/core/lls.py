@@ -9,6 +9,9 @@ least-utilized stage until throughput starts decreasing (the last,
 degrading move is reverted).  Like ODIN it only consumes observed stage
 times.  Each tried move is one serially-processed query; the paper
 reports ~1 query per LLS rebalancing phase.
+
+The port's copy of the JAX package's ``core/lls.py``; only import paths
+differ.  ``tests/test_torch_control.py`` holds it equal to the original.
 """
 from __future__ import annotations
 
@@ -76,3 +79,14 @@ def lls_rebalance(config: Sequence[int], source: StageTimeSource,
     while not ex.done:
         ex.step(source)
     return ex.result()
+
+
+# The online wrapper (shared detection + explorer factory) lives in
+# repro_torch.schedulers as LLSPolicy; ``LLSController`` stays importable.
+
+
+def __getattr__(name: str):
+    if name == "LLSController":
+        from repro_torch.schedulers.policies import LLSPolicy
+        return LLSPolicy
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

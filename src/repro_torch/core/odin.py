@@ -16,7 +16,7 @@ configuration is recorded.
 The algorithm is *online*: each loop iteration is one serially-processed
 query (paper §4.2, "Exploration overhead": ~4 trials for α=2, ~12 for
 α=10).  :class:`OdinExplorer` exposes exactly one iteration per
-``step()`` so the simulator (and the live serving loop) can interleave
+``step()`` so the simulator (and the live JAX serving loop) can interleave
 trials with the evolving interference state; :func:`odin_rebalance` is the
 run-to-completion convenience wrapper against a frozen state.
 
@@ -28,6 +28,9 @@ Edge-case policy (the paper's pseudocode leaves these implicit):
   are skipped when locating the bottleneck and are natural receivers when
   reclaiming resources (§3.1).
 * at the pipeline ends only the existing neighbour receives a layer.
+
+The port's copy of the JAX package's ``core/odin.py``; only import paths
+differ.  ``tests/test_torch_control.py`` holds it equal to the original.
 """
 from __future__ import annotations
 
@@ -44,6 +47,8 @@ class Trial:
     config: List[int]
     throughput: float
     improved: bool
+    #: Mesh assignment the trial ran with (``None`` = unsharded run).
+    mesh: Optional[List[int]] = None
 
 
 @dataclasses.dataclass
@@ -51,6 +56,8 @@ class RebalanceResult:
     config: List[int]
     throughput: float
     trials: List[Trial]
+    #: Best-seen mesh assignment (``None`` = unsharded run).
+    mesh: Optional[List[int]] = None
 
     @property
     def num_trials(self) -> int:
@@ -195,6 +202,112 @@ class OdinExplorer:
                                list(self.trials))
 
 
+class MeshOdinExplorer(OdinExplorer):
+    """Algorithm 1 over the (boundary, slice) action space
+    (docs/SHARDING.md).
+
+    Each ``step()`` still costs one serially-processed query, but the
+    move set grows: besides shifting one layer off the affected
+    (slowest) stage, a trial may shift one *device* into it from an
+    adjacent stage's mesh slice (adjacent-only shifts keep every
+    stage's device range contiguous).  Candidates are ranked with the
+    same stage-time source the trial is measured against — in the
+    simulator prediction and measurement coincide, live the EMA
+    estimates fill the role, exactly as for layer moves.  Patience
+    (``γ``/``α``), plateau escape and best-seen tracking follow the
+    parent; the unsharded explorer is bit-untouched (this class is only
+    constructed when a mesh is armed).
+    """
+
+    def __init__(self, config: Sequence[int], alpha: int,
+                 mesh: Sequence[int]):
+        super().__init__(config, alpha)
+        self.A = list(mesh)
+        self.A_opt = list(mesh)
+
+    # -- candidate enumeration ------------------------------------------------
+    def _candidates(self, times: np.ndarray, affected: int):
+        """(config, assignment) single moves off/into the affected
+        stage, deterministic order: layer move first, then device
+        shifts from the left / right neighbour."""
+        C, A, n = self.C, self.A, len(self.C)
+        out = []
+        s_left = float(np.sum(times[:affected]))
+        s_right = float(np.sum(times[affected + 1:]))
+        direction = "left" if s_left < s_right else "right"
+        lightest = _lightest_in_direction(times, C, affected, direction)
+        if lightest is None:
+            direction = "left" if direction == "right" else "right"
+            lightest = _lightest_in_direction(times, C, affected,
+                                              direction)
+        if lightest is not None and C[affected] > 1:
+            C2 = list(C)
+            C2[affected] -= 1
+            C2[lightest] += 1
+            out.append((C2, list(A)))
+        for donor in (affected - 1, affected + 1):
+            if 0 <= donor < n and A[donor] > 1:
+                A2 = list(A)
+                A2[donor] -= 1
+                A2[affected] += 1
+                out.append((list(C), A2))
+        return out
+
+    def step(self, source: StageTimeSource) -> List[int]:
+        assert not self.done
+        # Live reference against the best-seen (config, assignment) —
+        # same online-baseline rule as the parent.
+        self.T = throughput(source.stage_times(self.C_opt, self.A_opt))
+        times = source.stage_times(self.C, self.A)
+        affected = _affected_index(times, self.C)
+
+        cands = self._candidates(times, affected)
+        if not cands:
+            self.done = True
+            return list(self.C)
+        scored = [throughput(source.stage_times(c, a)) for c, a in cands]
+        best = int(np.argmax(scored))   # first max wins (deterministic)
+        self.C, self.A = cands[best]
+        T_new = scored[best]
+
+        if T_new > self.T:
+            self.gamma = 0
+            self.T = T_new
+            self.C_opt, self.A_opt = list(self.C), list(self.A)
+            self.trials.append(Trial(list(self.C), T_new, True,
+                                     mesh=list(self.A)))
+        elif T_new == self.T:
+            # Plateau escape: one extra application of the same move.
+            times = source.stage_times(self.C, self.A)
+            affected = _affected_index(times, self.C)
+            again = self._candidates(times, affected)
+            if again:
+                scores = [throughput(source.stage_times(c, a))
+                          for c, a in again]
+                j = int(np.argmax(scores))
+                self.C, self.A = again[j]
+                T_new = scores[j]
+            improved = T_new > self.T
+            self.gamma = 0 if improved else self.gamma + 1
+            if improved:
+                self.T = T_new
+                self.C_opt, self.A_opt = list(self.C), list(self.A)
+            self.trials.append(Trial(list(self.C), T_new, improved,
+                                     mesh=list(self.A)))
+        else:
+            self.gamma += 1
+            self.trials.append(Trial(list(self.C), T_new, False,
+                                     mesh=list(self.A)))
+
+        if self.gamma >= self.alpha:
+            self.done = True
+        return list(self.C)
+
+    def result(self) -> RebalanceResult:
+        return RebalanceResult(list(self.C_opt), float(self.T or 0.0),
+                               list(self.trials), mesh=list(self.A_opt))
+
+
 def odin_rebalance(config: Sequence[int], alpha: int,
                    source: StageTimeSource,
                    max_trials: int = 10_000) -> RebalanceResult:
@@ -205,3 +318,17 @@ def odin_rebalance(config: Sequence[int], alpha: int,
             break
         ex.step(source)
     return ex.result()
+
+
+# ---------------------------------------------------------------------------
+# The online monitor (paper §3.1) lives in repro_torch.schedulers: the shared
+# InterferenceDetector + OdinPolicy replace the old per-algorithm
+# controller.  ``OdinController`` remains importable as an alias.
+# ---------------------------------------------------------------------------
+
+
+def __getattr__(name: str):
+    if name == "OdinController":
+        from repro_torch.schedulers.policies import OdinPolicy
+        return OdinPolicy
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -25,9 +25,10 @@ import json
 import numpy as np
 import torch
 
+from repro_torch import api
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.models import Model
-from repro_torch.schedulers import SCHEDULERS
+from repro_torch.schedulers import available_schedulers
 from repro_torch.serving import ServingEngine
 from repro_torch.telemetry import export_path_format, render_export
 from repro_torch.util.device import resolve_device
@@ -55,7 +56,11 @@ def interference_events(queries: int, eps: int, freq: int, duration: int,
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="qwen3-4b")
-    ap.add_argument("--scheduler", default="odin", choices=tuple(SCHEDULERS))
+    # Every registered policy is servable except the oracle, which needs
+    # a caller-supplied solver.
+    ap.add_argument("--scheduler", default="odin",
+                    choices=tuple(n for n in available_schedulers()
+                                  if n != "oracle"))
     ap.add_argument("--alpha", type=int, default=10)
     ap.add_argument("--eps", type=int, default=4)
     ap.add_argument("--queries", type=int, default=100)
@@ -168,12 +173,13 @@ def main() -> None:
                          mean_burst=5.0 / args.rate * args.eps,
                          mean_gap=10.0 / args.rate * args.eps,
                          seed=args.seed)
-    trace = eng.serve(queries, schedule, workload=args.workload,
-                      workload_kwargs=wl_kwargs, max_batch=args.max_batch,
-                      batching=(None if args.batching == "none"
-                                else args.batching),
-                      buckets=(args.buckets or None),
-                      trace_mode=args.trace_mode)
+    trace = api.run(api.RunSpec(
+        engine=eng, queries=queries, schedule=schedule,
+        workload=api.WorkloadSpec(name=args.workload, kwargs=wl_kwargs),
+        batching=api.BatchingSpec(
+            mode=(None if args.batching == "none" else args.batching),
+            max_batch=args.max_batch, buckets=(args.buckets or None)),
+        telemetry=api.TelemetrySpec(trace_mode=args.trace_mode)))
     s = trace.summary()
     configs = trace.configs
     s["final_config"] = configs[-1] if configs else None

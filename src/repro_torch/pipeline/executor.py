@@ -19,6 +19,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.mesh import (
+    collective_frac as mesh_collective_frac,
+    mesh_stage_times,
+)
 from repro_torch.models import blocks as blk
 from repro_torch.models.layers import embed, rms_norm, unembed
 from repro_torch.util.device import resolve_device
@@ -214,19 +218,41 @@ class LocalPipelineExecutor:
 
 
 class MeasuredTimeSource:
-    """StageTimeSource over measured per-block times + live slowdowns.
+    """StageTimeSource over real measured per-block times + live scenarios.
 
     Stage time = sum of its blocks' measured clean times × the EP's
     current slowdown; one ``np.add.reduceat`` over the config's block
-    offsets.  (The JAX package's version also models mesh-sliced stages;
-    that waits for the port's mesh slice.)
+    offsets.
+
+    With a :class:`~repro_torch.core.mesh.MeshSpec` attached the source
+    additionally models mesh-sliced stages (docs/SHARDING.md): the
+    measured compute time divides by the stage's device count and a
+    modeled collective term is added via
+    :func:`~repro_torch.core.mesh.mesh_stage_times` -- the same cost model
+    the simulator uses, so a live scheduler reasons over (boundary, slice)
+    moves from measured data.  ``assignment`` is the committed slice
+    vector (the runtime keeps it synced); ``coll_factor`` is the live
+    collective-contention estimate (1.0 when quiet).  ``mesh=None`` (the
+    default) touches none of this.  A copy of the JAX package's class;
+    ``tests/test_torch_pipeline.py`` holds it equal to the original.
     """
 
-    def __init__(self, block_times: np.ndarray, slowdowns: np.ndarray):
+    def __init__(self, block_times: np.ndarray, slowdowns: np.ndarray,
+                 mesh=None, coll_times: Optional[np.ndarray] = None,
+                 assignment: Optional[Sequence[int]] = None,
+                 coll_factor: float = 1.0):
         self.block_times = np.asarray(block_times, float)
         self.slowdowns = np.asarray(slowdowns, float)  # per EP
+        self.mesh = mesh  # MeshSpec or None
+        self.coll_times = (np.asarray(coll_times, float)
+                           if coll_times is not None
+                           else (mesh.layer_costs(len(self.block_times))
+                                 if mesh is not None else None))
+        self.assignment = (list(assignment) if assignment is not None
+                           else None)
+        self.coll_factor = float(coll_factor)
 
-    def stage_times(self, config: Sequence[int]) -> np.ndarray:
+    def _compute_times(self, config: Sequence[int]) -> np.ndarray:
         counts = np.asarray(config, dtype=np.int64)
         out = np.zeros(len(counts))
         nz = counts > 0
@@ -237,3 +263,30 @@ class MeasuredTimeSource:
             # start (empty stages contribute no blocks and stay 0).
             out[nz] = np.add.reduceat(self.block_times, starts[nz])
         return out * self.slowdowns
+
+    def stage_times(self, config: Sequence[int],
+                    assignment: Optional[Sequence[int]] = None
+                    ) -> np.ndarray:
+        compute = self._compute_times(config)
+        if self.mesh is None:
+            return compute
+        a = assignment if assignment is not None else self.assignment
+        if a is None:
+            return compute
+        return mesh_stage_times(compute, config, a, self.mesh,
+                                self.coll_factor,
+                                layer_costs=self.coll_times)
+
+    def collective_frac(self, config: Sequence[int],
+                        assignment: Optional[Sequence[int]] = None
+                        ) -> float:
+        """Bottleneck stage's modeled collective share (the live
+        ``collective_frac`` trace column); 0.0 unsharded."""
+        if self.mesh is None:
+            return 0.0
+        a = assignment if assignment is not None else self.assignment
+        if a is None:
+            return 0.0
+        return mesh_collective_frac(self._compute_times(config), config, a,
+                                    self.mesh, self.coll_factor,
+                                    layer_costs=self.coll_times)

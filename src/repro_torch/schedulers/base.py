@@ -14,11 +14,16 @@ oracle, §3.3–§4.2).  This module defines that contract:
   builds the explorer that decides *how* (``make_explorer``), and is told
   when a phase commits (``finish``).  The shared
   :class:`~repro_torch.schedulers.runtime.RebalanceRuntime` owns everything
-  in between, so every driver executes policies identically.
+  in between, so the simulator and the live JAX engine execute policies
+  identically.
 * :class:`InterferenceDetector` — the paper's §3.1 monitor (bottleneck
   stage time shifted beyond a relative threshold), factored out of the
   old per-controller copies, plus an EMA/hysteresis mode for noisy
   measured times.
+
+The port's copy of the JAX package's ``schedulers/base.py``; only import
+paths differ.  ``tests/test_torch_control.py`` holds it equal to the
+original.
 """
 from __future__ import annotations
 
@@ -31,7 +36,7 @@ from typing import (
     runtime_checkable,
 )
 
-if TYPE_CHECKING:  # annotation-only: keeps core <-> schedulers acyclic
+if TYPE_CHECKING:  # annotation-only: keeps repro_torch.core <-> schedulers acyclic
     from repro_torch.core.odin import RebalanceResult
     from repro_torch.core.pipeline_state import StageTimeSource
 
@@ -57,14 +62,29 @@ class Explorer(Protocol):
 
 @runtime_checkable
 class SchedulerPolicy(Protocol):
-    """A pluggable mitigation policy: decides, the runtime executes."""
+    """A pluggable mitigation policy: decides, the runtime executes.
+
+    Policies may additionally expose ``steady_detect_stable: bool``:
+    True declares that ``detect`` has no side effects and returns a
+    constant answer while (config, stage times) are unchanged — and
+    stays quiet right after ``finish`` re-arms it.  The run loop's
+    batch-granular fast path then polls once per environment-steady
+    segment instead of once per query.  Absent (or False) keeps
+    per-query polling, which is always correct.
+    """
 
     def detect(self, config: Sequence[int], source: StageTimeSource) -> bool:
         """True if a rebalancing phase should start now."""
         ...
 
-    def make_explorer(self, config: Sequence[int]) -> Explorer:
-        """Build the explorer that runs the phase from ``config``."""
+    def make_explorer(self, config: Sequence[int],
+                      mesh: Optional[Sequence[int]] = None) -> Explorer:
+        """Build the explorer that runs the phase from ``config``.
+
+        ``mesh`` is the committed device assignment on sharded runs
+        (docs/SHARDING.md) — the runtime passes it only when one is
+        armed, so unsharded policies may ignore the kwarg entirely.
+        """
         ...
 
     def finish(self, config: Sequence[int], source: StageTimeSource) -> None:
@@ -110,6 +130,38 @@ class InterferenceDetector:
         self.hysteresis = max(1, int(hysteresis))
         self._ref: Optional[float] = None
         self._streak = 0
+
+    @property
+    def steady_stable(self) -> bool:
+        """Whether repeated quiet observations are side-effect-free.
+
+        The paper's ``rel`` rule is a pure comparison against the
+        post-rebalance reference, so skipping redundant observations in
+        an unchanged environment cannot alter any later decision.  The
+        EMA mode folds every quiet observation into the reference, so
+        it must see each query."""
+        return self.mode == "rel"
+
+    @property
+    def armed(self) -> bool:
+        """Whether a reference bottleneck has been recorded yet."""
+        return self._ref is not None
+
+    def shift(self, config: Sequence[int],
+              source: StageTimeSource) -> float:
+        """Signed relative bottleneck shift vs. the armed reference,
+        **without touching detector state** — ``> 0`` means the current
+        bottleneck is slower than the post-rebalance reference.
+
+        This is the read-only probe the cluster's interference-aware
+        router uses to ask "does this replica's detector currently see
+        interference?" between rebalances (docs/CLUSTER.md); ``0.0``
+        before the first observation arms the reference.
+        """
+        if self._ref is None:
+            return 0.0
+        b = bottleneck_time(config, source)
+        return (b - self._ref) / max(self._ref, 1e-12)
 
     def observe(self, config: Sequence[int],
                 source: StageTimeSource) -> bool:

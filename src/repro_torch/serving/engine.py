@@ -26,8 +26,19 @@ a query that arrives while a same-bucket batch is in flight joins it at
 the next stage boundary with one fused catch-up launch.  ``"drain"``
 forms the same batches and runs them to completion.
 
-Mesh-sliced stages (ROADMAP item 6d), the ``repro.api`` surface (6e) and
-admission, faults, retries and QoS tiers (6f) wait for later slices.
+``ServingEngine(..., mesh=MeshSpec(...))`` arms mesh-sliced stages
+(docs/SHARDING.md) as in the JAX live engine: a scheduler-side model over
+the measured compute times.  Each stage's measured time is divided by its
+devices and a modelled collective term is added
+(:func:`~repro_torch.core.mesh.mesh_stage_times`); the scheduler explores
+(boundary, slice) moves over that model, and the trace reports the
+modelled bottleneck and its collective share.  Every stage still runs on
+the one card, and no slice of the card is resized: wall-clock service
+latencies stay the measured ones.
+
+``serve`` is a thin wrapper over :func:`repro_torch.api.run`.  Admission,
+faults, retries and QoS tiers raise ``NotImplementedError`` in the port's
+run loop until ROADMAP item 6f.
 """
 from __future__ import annotations
 
@@ -39,6 +50,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.mesh import (
+    balanced_assignment,
+    collective_frac as _mesh_collective_frac,
+    mesh_stage_times,
+    resolve_mesh,
+)
 from repro_torch.core.pipeline_state import balanced_config, throughput
 from repro_torch.pipeline.executor import (
     LocalPipelineExecutor,
@@ -50,7 +67,8 @@ from repro_torch.schedulers.defaults import (
     DEFAULT_ALPHA,
     MEASURED_DETECTOR_MODE,
 )
-from repro_torch.schedulers.policies import make_scheduler
+from repro_torch.schedulers.base import SchedulerPolicy
+from repro_torch.schedulers.registry import make_scheduler
 from repro_torch.schedulers.runtime import RebalanceRuntime, RuntimeStep
 from repro_torch.util.errors import QueryError
 from repro_torch.workloads import (
@@ -92,6 +110,7 @@ class _LiveQueryExecutor:
         self.schedule = slowdown_schedule
         self.max_batch = max(1, int(max_batch))
         self._slow: Optional[np.ndarray] = None
+        self._cf = 1.0  # live collective-contention factor (mesh runs)
         # Formed-dispatch state (the run loop's configure_batching hook
         # fills it in when a BatchFormer is attached).
         self.former = None
@@ -108,20 +127,24 @@ class _LiveQueryExecutor:
 
     def begin_query(self, q: int) -> Optional[MeasuredTimeSource]:
         self._slow = np.asarray(self.schedule(q), float)
+        self._cf = self.engine._coll_factor_at(q)
         if self.engine._block_times is None:
             return None
-        return self.engine._measured_source(self._slow)
+        return self.engine._measured_source(self._slow, self._cf)
 
     def steady_horizon(self, q: int) -> int:
         """Constant-interference run length from ``q``: a batch shares
-        one slowdown vector (a schedule edge ends the chunk) and one
+        one slowdown vector (a schedule edge ends the chunk), one
+        collective-contention factor when a mesh is armed, and one
         dispatch width (a change of sequence length, or of bucket edge
         with buckets attached, ends it)."""
         base = np.asarray(self.schedule(q), float)
+        cf = self.engine._coll_factor_at(q)
         width = self._width(q)
         n = 1
         while (n < self.max_batch and q + n < len(self.queries)
                and self._width(q + n) == width
+               and self.engine._coll_factor_at(q + n) == cf
                and np.array_equal(np.asarray(self.schedule(q + n), float),
                                   base)):
             n += 1
@@ -187,10 +210,27 @@ class _LiveQueryExecutor:
                 # Arm detection against this query's measured conditions,
                 # so interference beginning at the very next query is a
                 # shift from this baseline rather than the baseline.
-                eng.runtime.arm(eng._measured_source(self._slow))
+                eng.runtime.arm(eng._measured_source(self._slow, self._cf))
             return tmax
 
         return finish
+
+    def _mesh_model(self, stage_times: np.ndarray, config,
+                    assignment) -> tuple:
+        """Scheduler-side sharded-stage model over *measured* per-stage
+        compute times: (modeled bottleneck time, collective share).
+        Wall-clock service latencies are never rewritten -- only the
+        capability/throughput signal the admission ledger and the trace
+        columns consume (docs/SHARDING.md)."""
+        eng = self.engine
+        mt = mesh_stage_times(stage_times, config, assignment, eng.mesh,
+                              self._cf, layer_costs=eng._coll_times)
+        live = [i for i, c in enumerate(config) if c > 0]
+        tmax = float(np.asarray(mt)[live].max())
+        cf = _mesh_collective_frac(stage_times, config, assignment,
+                                   eng.mesh, self._cf,
+                                   layer_costs=eng._coll_times)
+        return max(tmax, 1e-12), cf
 
     def execute(self, q: int, step: RuntimeStep) -> QueryRecord:
         eng = self.engine
@@ -210,13 +250,18 @@ class _LiveQueryExecutor:
                                        slowdowns=self._slow)
         latency = time.perf_counter() - t0
         tmax = finish(st)
+        coll_frac = 0.0
+        if eng.mesh is not None and step.mesh is not None:
+            tmax, coll_frac = self._mesh_model(st, step.config, step.mesh)
         if self.former is not None:
             # A formed dispatch is group-synchronous: a solo dispatch holds
             # the pipeline for its full drain, like a singleton batch.
             return QueryRecord(service_latency=latency,
-                               throughput=1.0 / max(latency, 1e-12))
+                               throughput=1.0 / max(latency, 1e-12),
+                               collective_frac=coll_frac)
         return QueryRecord(service_latency=latency,
-                           throughput=1.0 / max(tmax, 1e-12))
+                           throughput=1.0 / max(tmax, 1e-12),
+                           collective_frac=coll_frac)
 
     def execute_many(self, q0: int, steps) -> BatchRecord:
         eng = self.engine
@@ -235,6 +280,11 @@ class _LiveQueryExecutor:
         # Stage times cover the whole batch; the EMA takes the per-query
         # share.
         tmax = max(finish(st / n), 1e-12)
+        coll_fracs = None
+        if eng.mesh is not None and steps[0].mesh is not None:
+            tmax, cf = self._mesh_model(st / n, steps[0].config,
+                                        steps[0].mesh)
+            coll_fracs = np.broadcast_to(cf, n)
         # The batch holds the admission head for one batch-bottleneck beat
         # per member (occupancy tmax_batch / n) and every member completes
         # when the batch drains.  The run loop staggers member starts by
@@ -242,7 +292,8 @@ class _LiveQueryExecutor:
         # completion at dispatch + wall.
         return BatchRecord(
             service_latencies=wall - np.arange(n) * tmax,
-            throughputs=np.broadcast_to(1.0 / tmax, n))
+            throughputs=np.broadcast_to(1.0 / tmax, n),
+            collective_fracs=coll_fracs)
 
 
 def _pad_rows(arr: torch.Tensor, rows: int) -> torch.Tensor:
@@ -280,6 +331,7 @@ class _LiveDispatchBuilder:
         eng = live.engine
         self._ex = eng.executor
         self._config = list(step.config)
+        self._mesh = (list(step.mesh) if step.mesh is not None else None)
         self._S = len(self._config)
         self._bounds = stage_bounds(self._config)
         self._slow = live._slow
@@ -395,24 +447,46 @@ class _LiveDispatchBuilder:
         # is shared by the members present when it ran (a joiner's
         # catch-up is dispatch latency, not a per-block time signal).
         done = self._live._measure(self._config, self._first)
-        done(self._stage_times / np.maximum(self._stage_members, 1.0))
+        per_query = self._stage_times / np.maximum(self._stage_members, 1.0)
+        done(per_query)
+        coll_frac = 0.0
+        if self._live.engine.mesh is not None and self._mesh is not None:
+            _, coll_frac = self._live._mesh_model(per_query, self._config,
+                                                  self._mesh)
         return DispatchRecord(
             start_offsets=np.asarray(self._starts, float),
             drain=drain,
             throughput=1.0 / max(drain, 1e-12),
             padded_tokens=float(next_pow2(self._rows)) * float(self._seq),
-            actual_tokens=self._actual_tok)
+            actual_tokens=self._actual_tok,
+            collective_frac=coll_frac)
 
 
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params: Dict, num_eps: int,
-                 scheduler: str = "odin",
+                 scheduler: Union[str, SchedulerPolicy] = "odin",
                  alpha: int = DEFAULT_ALPHA,
                  rel_threshold: Optional[float] = None,
                  estimate_beta: float = 0.5,
                  executor: Optional[LocalPipelineExecutor] = None,
+                 mesh=None,
+                 coll_factor_schedule=None,
                  device: Union[str, torch.device] = "cuda"):
         self.cfg = cfg
+        # Mesh-sliced stages (docs/SHARDING.md): scheduler-side modeling
+        # over measured compute times.  ``mesh`` accepts anything
+        # :func:`repro_torch.core.mesh.resolve_mesh` takes;
+        # ``coll_factor_schedule(q) -> float`` emulates collective
+        # contention the way ``slowdown_schedule`` emulates compute
+        # interference.  Unset (the default), every mesh code path is
+        # dormant.
+        self.mesh = resolve_mesh(mesh)
+        self.coll_factor_schedule = coll_factor_schedule
+        self._coll_times = (self.mesh.layer_costs(cfg.num_blocks)
+                            if self.mesh is not None else None)
+        self._initial_assignment = (
+            balanced_assignment(self.mesh.devices, num_eps)
+            if self.mesh is not None else None)
         # ``executor`` lets several engines share one pipeline (and its
         # warmed shapes) while each keeps its own runtime and estimates.
         self.executor = (executor if executor is not None
@@ -422,19 +496,41 @@ class ServingEngine:
         # EMA.  0.5 tracks fast; 0 freezes the estimates, which makes
         # scheduling decisions reproducible across serving windows.
         self.estimate_beta = float(estimate_beta)
-        self.scheduler = scheduler
-        self.policy = make_scheduler(scheduler, alpha=alpha,
-                                     rel_threshold=rel_threshold,
-                                     detector=MEASURED_DETECTOR_MODE)
+        if isinstance(scheduler, str):
+            self.policy = make_scheduler(scheduler, alpha=alpha,
+                                         rel_threshold=rel_threshold,
+                                         detector=MEASURED_DETECTOR_MODE)
+            self.scheduler = scheduler
+        else:
+            self.policy = scheduler
+            self.scheduler = getattr(scheduler, "name",
+                                     type(scheduler).__name__)
         self._initial_config = balanced_config(cfg.num_blocks, num_eps)
-        self.runtime = RebalanceRuntime(self.policy, self._initial_config)
+        self.runtime = RebalanceRuntime(self.policy, self._initial_config,
+                                        mesh=self._initial_assignment)
         # EMA of measured per-block times feeds the scheduler's trial
         # evaluations between real executions.
         self._block_times: Optional[np.ndarray] = None
 
-    def _measured_source(self, slowdowns) -> MeasuredTimeSource:
-        """The scheduler's time source over the current estimates."""
-        return MeasuredTimeSource(self._block_times, slowdowns)
+    def _coll_factor_at(self, q: int) -> float:
+        """Collective-contention factor for query ``q`` (1.0 quiet /
+        unsharded)."""
+        if self.mesh is None or self.coll_factor_schedule is None:
+            return 1.0
+        return float(self.coll_factor_schedule(q))
+
+    def _measured_source(self, slowdowns,
+                         coll_factor: float = 1.0) -> MeasuredTimeSource:
+        """The scheduler's time source over the current block-time
+        estimates -- mesh-aware when a mesh is armed (the runtime syncs
+        the committed assignment on every poll)."""
+        if self.mesh is None:
+            return MeasuredTimeSource(self._block_times, slowdowns)
+        return MeasuredTimeSource(self._block_times, slowdowns,
+                                  mesh=self.mesh,
+                                  coll_times=self._coll_times,
+                                  assignment=self.runtime.mesh,
+                                  coll_factor=coll_factor)
 
     @property
     def config(self) -> List[int]:
@@ -448,14 +544,19 @@ class ServingEngine:
         ``estimate_beta = 0`` this makes scheduling reproducible across
         windows, e.g. for A/B comparisons of ``serve(..., max_batch=...)``.
         """
-        self.runtime.reset(self._initial_config)
+        self.runtime.reset(self._initial_config,
+                           mesh=self._initial_assignment)
 
     def estimated_peak_throughput(self) -> float:
         """Interference-free throughput of the starting configuration from
         the clean per-block estimates; NaN until a query was measured."""
         if self._block_times is None:
             return float("nan")
-        clean = MeasuredTimeSource(self._block_times, np.ones(self.num_eps))
+        clean = MeasuredTimeSource(self._block_times,
+                                   np.ones(self.num_eps),
+                                   mesh=self.mesh,
+                                   coll_times=self._coll_times,
+                                   assignment=self._initial_assignment)
         return throughput(clean.stage_times(self._initial_config))
 
     def _update_block_estimates(self, config: Sequence[int],
@@ -491,9 +592,15 @@ class ServingEngine:
                     batching: Union[str, object, None] = None,
                     buckets: Union[str, object, None] = None,
                     explore_in_batch: bool = False,
+                    admission: Union[str, object, None] = None,
+                    admission_kwargs: Optional[dict] = None,
                     trace_mode: str = "dense",
                     metrics_sink=None,
-                    sink_interval: Optional[int] = None) -> PipelineTrace:
+                    sink_interval: Optional[int] = None,
+                    faults=None,
+                    retries=None,
+                    tiers=None,
+                    tiers_kwargs: Optional[dict] = None) -> PipelineTrace:
         """Serve ``queries`` under ``slowdown_schedule(q) -> per-EP
         slowdown factors (>= 1.0)``.
 
@@ -524,6 +631,10 @@ class ServingEngine:
         flat-memory telemetry path: streaming runs return a
         :class:`~repro_torch.telemetry.StreamingTrace`, sinks receive
         periodic snapshots in either mode.
+
+        ``admission``, ``faults``, ``retries`` and ``tiers`` are the JAX
+        engine's arguments; the port's run loop raises
+        ``NotImplementedError`` for them until ROADMAP item 6f.
         """
         seq_max = max((int(t.shape[-1]) for t in queries), default=1)
         former = resolve_batching(batching, max_batch=max_batch,
@@ -543,11 +654,15 @@ class ServingEngine:
                                    workload=workload,
                                    workload_kwargs=workload_kwargs,
                                    scheduler_name=self.scheduler,
+                                   admission=admission,
+                                   admission_kwargs=admission_kwargs,
                                    trace_mode=trace_mode,
                                    metrics_sink=metrics_sink,
                                    sink_interval=sink_interval,
                                    former=former,
-                                   lengths=lengths)
+                                   lengths=lengths,
+                                   faults=faults, retries=retries,
+                                   tiers=tiers, tiers_kwargs=tiers_kwargs)
         # The peak reference only exists after measurement: stamp it
         # post hoc so the trace's SLO metrics work like the simulator's.
         trace.peak_throughput = self.estimated_peak_throughput()
@@ -561,16 +676,38 @@ class ServingEngine:
               batching: Union[str, object, None] = None,
               buckets: Union[str, object, None] = None,
               explore_in_batch: bool = False,
+              admission: Union[str, object, None] = None,
+              admission_kwargs: Optional[dict] = None,
               trace_mode: str = "dense",
               metrics_sink=None,
-              sink_interval: Optional[int] = None) -> PipelineTrace:
+              sink_interval: Optional[int] = None,
+              faults=None,
+              retries=None,
+              tiers=None,
+              tiers_kwargs: Optional[dict] = None) -> PipelineTrace:
         """Serve ``queries`` under ``slowdown_schedule(q) -> per-EP
-        slowdown factors``; see :meth:`_serve_impl`.  (The JAX engine
-        routes this through its ``repro.api`` RunSpec surface, ROADMAP
-        item 6e; the port calls :meth:`_serve_impl` directly.)"""
-        return self._serve_impl(
-            queries, slowdown_schedule, workload=workload,
-            workload_kwargs=workload_kwargs, max_batch=max_batch,
-            batching=batching, buckets=buckets,
-            explore_in_batch=explore_in_batch, trace_mode=trace_mode,
-            metrics_sink=metrics_sink, sink_interval=sink_interval)
+        slowdown factors``.
+
+        Thin wrapper over the unified :class:`repro_torch.api.RunSpec`
+        path (one declaration, one dispatcher -- docs/API.md); the kwargs
+        here map 1:1 onto spec fields, and physical per-engine state like
+        the device mesh lives on the :class:`ServingEngine` constructor.
+        See :meth:`_serve_impl` for the kwarg-level documentation.
+        """
+        from repro_torch import api
+        spec = api.RunSpec(
+            engine=self, queries=queries, schedule=slowdown_schedule,
+            workload=api.WorkloadSpec(name=workload,
+                                      kwargs=workload_kwargs),
+            admission=api.AdmissionSpec(name=admission,
+                                        kwargs=admission_kwargs),
+            batching=api.BatchingSpec(mode=batching, max_batch=max_batch,
+                                      buckets=buckets,
+                                      explore_in_batch=explore_in_batch),
+            faults=api.FaultsSpec(plan=faults),
+            retries=api.RetriesSpec(policy=retries),
+            tiers=api.TiersSpec(spec=tiers, kwargs=tiers_kwargs),
+            telemetry=api.TelemetrySpec(trace_mode=trace_mode,
+                                        metrics_sink=metrics_sink,
+                                        sink_interval=sink_interval))
+        return api.run(spec)

@@ -74,10 +74,10 @@ gaps alone, then admits them with the same predicted ledger the scalar
 loop would).  With no former attached every batching branch is bypassed
 — pre-former runs are bit-identical.
 
-The port's copy of the JAX package's ``workloads/runner.py``; only import paths
-differ, and the branches that wait for later
-slices (admission, faults, retries, tiers, the ``repro.api`` route).  ``tests/test_torch_workloads.py`` holds it equal to
-the original.
+The port's copy of the JAX package's ``workloads/runner.py``; only import
+paths differ, and the branches that wait for later slices (admission,
+faults, retries, tiers: ROADMAP.md item 6f).
+``tests/test_torch_workloads.py`` holds it equal to the original.
 """
 from __future__ import annotations
 
@@ -1633,17 +1633,28 @@ def run_pipeline(executor: QueryExecutor,
                  ) -> Union[PipelineTrace, StreamingTrace]:
     """Serve ``num_queries`` arrivals through one scheduler runtime.
 
-    The JAX package routes this through its ``repro.api`` RunSpec surface
-    (ROADMAP item 6e); the port calls :func:`_run_pipeline_impl` with the
-    same arguments, which documents them.
+    Thin wrapper over the unified :class:`repro_torch.api.RunSpec` path (one
+    declaration, one dispatcher — docs/API.md); the kwargs here map
+    1:1 onto spec fields and new options land on the spec instead of
+    this signature.  See :func:`_run_pipeline_impl` for the full
+    kwarg-level documentation (unchanged semantics, bit-identical
+    traces).
     """
-    return _run_pipeline_impl(
-        executor, runtime, num_queries, workload=workload,
-        workload_kwargs=workload_kwargs, scheduler_name=scheduler_name,
-        peak_throughput=peak_throughput, chunking=chunking,
-        max_chunk=max_chunk, admission=admission,
-        admission_kwargs=admission_kwargs, trace_mode=trace_mode,
-        metrics_sink=metrics_sink, sink_interval=sink_interval,
-        former=former, lengths=lengths, lengths_kwargs=lengths_kwargs,
-        faults=faults, retries=retries, tiers=tiers,
-        tiers_kwargs=tiers_kwargs)
+    from repro_torch import api
+    spec = api.RunSpec(
+        executor=executor, runtime=runtime, num_queries=num_queries,
+        peak_throughput=peak_throughput,
+        scheduler=api.SchedulerSpec(name=(scheduler_name or "")),
+        workload=api.WorkloadSpec(name=workload, kwargs=workload_kwargs),
+        admission=api.AdmissionSpec(name=admission,
+                                    kwargs=admission_kwargs),
+        batching=api.BatchingSpec(chunking=chunking, max_chunk=max_chunk,
+                                  former=former, lengths=lengths,
+                                  lengths_kwargs=lengths_kwargs),
+        faults=api.FaultsSpec(plan=faults),
+        retries=api.RetriesSpec(policy=retries),
+        tiers=api.TiersSpec(spec=tiers, kwargs=tiers_kwargs),
+        telemetry=api.TelemetrySpec(trace_mode=trace_mode,
+                                    metrics_sink=metrics_sink,
+                                    sink_interval=sink_interval))
+    return api.run(spec)

@@ -523,3 +523,77 @@ def test_continuous_serve_on_card_with_a_join(card, monkeypatch):
     assert len(joins) >= 1
     assert trace.summary()["mean_batch_occupancy"] > 1.0
     assert flash_attention.launches == sum(blocks) > 0
+
+
+@pytest.fixture(scope="module")
+def qwen_two_blocks():
+    """Full-width qwen3-4b cut to 2 blocks, bf16 on the card (a module
+    fixture is set up before ``card``, so it asks for the card itself)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    cfg = dataclasses.replace(get_config("qwen3-4b"), num_layers=2)
+    params = Model(cfg).init_params(0, dtype=torch.bfloat16, device="cuda")
+    rng = np.random.default_rng(11)
+    queries = [torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 256)),
+                               device="cuda") for _ in range(10)]
+    return cfg, params, queries
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", [None, 8], ids=["flat", "mesh"])
+def test_api_run_serves_full_width_blocks_on_card(card, qwen_two_blocks,
+                                                  mesh):
+    """api.run(RunSpec(engine=...)) under hybrid on two full-width qwen3-4b
+    blocks, with and without a mesh: K1 runs once per block and query on
+    its tensor-core kernel, and a mesh run keeps every assignment on 8
+    devices with collective shares in [0, 1)."""
+    from repro_torch import api
+    cfg, params, queries = qwen_two_blocks
+    eng = ServingEngine(cfg, params, num_eps=2, scheduler="hybrid",
+                        alpha=3, device="cuda",
+                        mesh=(None if mesh is None
+                              else api.MeshSpec(devices=mesh,
+                                                coll_cost=1e-4)),
+                        coll_factor_schedule=lambda q: 3.0 if q >= 5
+                        else 1.0)
+    eng.executor.warmup(1, 256)
+    flash_attention.launches = 0
+    flash_attention.tensor_core_launches = 0
+    trace = api.run(api.RunSpec(engine=eng, queries=queries,
+                                schedule=lambda q: [1.0, 3.0 if q >= 3
+                                                    else 1.0]))
+    assert len(trace.latencies) == len(queries)
+    assert flash_attention.launches == \
+        flash_attention.tensor_core_launches == cfg.num_blocks * len(queries)
+    assert all(sum(c) == cfg.num_blocks for c in trace.configs)
+    if mesh is None:
+        assert trace.mesh_trace is None
+    else:
+        assert all(sum(a) == mesh and min(a) >= 1 for a in trace.mesh_trace)
+        fr = np.asarray(trace.collective_fracs)
+        assert np.all((fr >= 0.0) & (fr < 1.0))
+
+
+@pytest.mark.cuda
+def test_simulator_on_a_database_measured_on_card(card, qwen_two_blocks):
+    """Block times measured on the card make a layer database; the
+    simulator compares the policies over it, the oracle best of all."""
+    from repro_torch import api
+    from repro_torch.core import generate_events, transformer_database
+    cfg, params, queries = qwen_two_blocks
+    eng = ServingEngine(cfg, params, num_eps=2, device="cuda")
+    bt = eng.executor.measure_block_times(queries[0], repeats=3)
+    assert bt.shape == (cfg.num_blocks,) and np.all(bt > 0)
+    db = transformer_database(np.tile(bt, 4), seed=0)
+    events = generate_events(400, 2, db.num_scenarios, 10, 10, seed=0)
+    tput = {}
+    for name in ("odin", "lls", "hybrid", "oracle", "none"):
+        t = api.run(api.RunSpec(db=db, num_eps=2, num_queries=400,
+                                events=events,
+                                scheduler=api.SchedulerSpec(name=name)))
+        tput[name] = t.summary()["mean_throughput_qps"]
+    assert all(np.isfinite(v) and v > 0 for v in tput.values())
+    assert tput["oracle"] >= max(tput.values()) * (1 - 1e-9)

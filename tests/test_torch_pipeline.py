@@ -17,8 +17,10 @@ from repro.pipeline import (  # noqa: E402
     MeasuredTimeSource as JaxMeasuredTimeSource,
     stage_bounds as jax_stage_bounds,
 )
+from repro.core.mesh import MeshSpec as JaxMeshSpec  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.core.mesh import MeshSpec  # noqa: E402
 from repro_torch.pipeline import (  # noqa: E402
     LocalPipelineExecutor,
     MeasuredTimeSource,
@@ -144,6 +146,30 @@ def test_measured_time_source_matches_jax(block_times, slow, config):
         t = port.stage_times(config)
         assert t[0] == pytest.approx(3.0)
         assert t[1] == pytest.approx(14.0)   # (3+4) * 2.0
+    # Mesh-sliced stages: the committed assignment, an explicit trial
+    # one, per-layer collective costs and a contention factor.
+    n = len(config)
+    assign = [8 - (n - 1)] + [1] * (n - 1)
+    trial = [1] * (n - 1) + [8 - (n - 1)]
+    coll = np.linspace(0.1, 0.4, len(block_times))
+    for kw in (dict(mesh=MeshSpec(8, coll_cost=0.3)),
+               dict(mesh=MeshSpec(8), coll_times=coll, coll_factor=2.5),
+               dict(mesh=MeshSpec(8, coll_costs=tuple(coll)),
+                    assignment=assign, coll_factor=1.5)):
+        jkw = dict(kw, mesh=JaxMeshSpec(**kw["mesh"].to_dict()))
+        port = MeasuredTimeSource(np.array(block_times), np.array(slow),
+                                  **kw)
+        ref = JaxMeasuredTimeSource(np.array(block_times), np.array(slow),
+                                    **jkw)
+        np.testing.assert_array_equal(port.coll_times, ref.coll_times)
+        for a in (None, trial):
+            np.testing.assert_array_equal(port.stage_times(config, a),
+                                          ref.stage_times(config, a))
+            assert port.collective_frac(config, a) == \
+                ref.collective_frac(config, a)
+        if "assignment" in kw:     # one-argument calls price it
+            np.testing.assert_array_equal(port.stage_times(config),
+                                          port.stage_times(config, assign))
 
 
 def test_run_batch_matches_stacked_run_query(setup):
