@@ -3,8 +3,9 @@ against their plain versions.
 
     python3 chip_smoke.py
 
-Phases, in the order they run (11 runs between 9 and 10); any failure
-raises and the script exits nonzero.  Each phase prints its wall time.
+Phases, in the order they run (11 and 12 run between 9 and 10); any
+failure raises and the script exits nonzero.  Each phase prints its wall
+time.
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions.
    There must be a CUDA device.
@@ -123,7 +124,8 @@ raises and the script exits nonzero.  Each phase prints its wall time.
 10. the MoE and embedding-input families, each model alone on the card
    (the earlier phases' parameters are freed first), with each model's
    peak device memory:
-   0. the kernels at these paths' shapes (``FAMILY_MAIN_CASES``,
+   0. the kernels at these paths' shapes and at qwen2-0.5b's (phase 12's
+      small pool) (``FAMILY_MAIN_CASES``,
       ``DECODE_FAMILY_MAIN_CASES``, ``SSD_FAMILY_MAIN_CASES``) against
       their plain versions at the main limits, timed beside the plain
       versions and the library call;
@@ -155,7 +157,39 @@ raises and the script exits nonzero.  Each phase prints its wall time.
    same inputs, and with the plain attention, whose logits the timed
    run's are held against (DECODE_RMS_LIMIT).  Forwards and prefills run
    the same check of every K1 and K3 launch against the plain version.
-12. the card line again, one ``{"kernels": [...]}`` line, and last
+12. fleets, admission control, faults and QoS tiers (run after phase 11,
+   while qwen3-4b is loaded, with full-width qwen2-0.5b loaded beside it),
+   every serve through ``serve_cluster`` or the engine's ``serve``; the
+   rates, SLOs and fault windows come from a closed-loop probe of one
+   clean replica, since the replicas take turns on the one card:
+   a. 4 qwen3-4b replicas sharing one executor, a 3x slowdown on stage 1
+      of replica 2 only, bursty traffic at 0.8x the probe's fleet rate:
+      round_robin, odin_aware, and odin_aware with fleet rebatching
+      (``max_batch`` 4, through ``run_batch``).  Every query is served
+      exactly once, and odin_aware routes fewer queries to replica 2 than
+      round_robin;
+   b. the same fleet at 2x that rate under slo_shed (an SLO of 3 probe
+      services), then queue_cap, and one engine under slo_shed: queries
+      are shed, served + shed = offered, and the executors run exactly
+      the served queries;
+   c. 2 qwen3-4b and 2 qwen2-0.5b replicas (pool ``small``), tiers
+      interactive and best_effort, overloaded: downgrade with value_shed,
+      then edf.  The summary has every per-tier key, only best_effort is
+      downgraded, and the small pool runs K1 at qwen2-0.5b's shape;
+   d. a crash of replica 0 for 10 probe services on the arrival clock and
+      a flaky window over the run (p 0.1), retries 3 and hedging after 2
+      services, then retries 0: no query served by replica 0 arrived in
+      its window, ``on_recover`` fires once per breaker probe,
+      availability with retries is at least 0.99 and above the no-retry
+      run's, completed + failed = admitted.  Then one engine under the
+      query-indexed plan ``crash@5+3,flaky@0+1000:p=0.2`` with retries 2,
+      whose failed queries and retries must equal a deterministic
+      stand-in's on the host.
+   Every K1 launch of the phase is counted by shape (it must equal the
+   blocks times the forwards each executor ran), and the first launch of
+   each distinct shape is held against the plain version on its own
+   inputs at the main limits.
+13. the card line again, one ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM data-sheet peaks: 989 TFLOP/s dense bf16 on the
@@ -241,9 +275,25 @@ from repro_torch.pipeline import MeasuredTimeSource  # noqa: E402
 from repro_torch.pipeline.executor import next_pow2  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 from repro_torch.serving import engine as engine_lib  # noqa: E402
-from repro_torch.schedulers import OraclePolicy  # noqa: E402
-from repro_torch.schedulers.runtime import RuntimeStep  # noqa: E402
-from repro_torch.workloads import make_lengths, resolve_batching  # noqa: E402
+from repro_torch.cluster import cluster as cluster_lib  # noqa: E402
+from repro_torch.cluster import serve_cluster  # noqa: E402
+from repro_torch.faults.health import (  # noqa: E402
+    HALF_OPEN,
+    OPEN,
+    HealthTracker,
+)
+from repro_torch.schedulers import OraclePolicy, make_scheduler  # noqa: E402
+from repro_torch.schedulers.runtime import (  # noqa: E402
+    RebalanceRuntime,
+    RuntimeStep,
+)
+from repro_torch.workloads import (  # noqa: E402
+    QueryRecord,
+    make_lengths,
+    make_workload,
+    resolve_batching,
+    run_pipeline,
+)
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM, dense bf16 tensor cores
 PEAK_FP32_FLOPS = 67e12       # H100 SXM, fp32 outside the tensor cores
@@ -329,6 +379,39 @@ MESH_DEVICES, MESH_COLL_FRACTION = 8, 0.25
 MESH_CF_FROM, MESH_CF_TO, MESH_CF = 12, 20, 3.0
 SIM_QUERIES = 2000
 SIM_POLICIES = ("odin", "lls", "hybrid", "oracle", "none")
+
+# Phase 12: fleets of FLEET_REPLICAS qwen3-4b engines sharing one executor,
+# serving queries of SEQ tokens.  Rates, SLOs and fault windows come from a
+# closed-loop probe of one clean replica (service latency s, fleet rate
+# R = FLEET_REPLICAS / s), since every replica runs on this one card.
+# 12a: bursty at FLEET_LOAD x R, SLOW_FACTOR on stage SLOW_EP of replica
+# FLEET_SLOW_REPLICA, FLEET_QUERIES queries (SHORT_QUERIES with fleet
+# rebatching); 12b: poisson at FLEET_OVERLOAD x R, slo_shed at
+# FLEET_SLO_SERVICES x s over FLEET_QUERIES, queue_cap FLEET_QUEUE_CAP and
+# one engine under slo_shed over SHORT_QUERIES; 12c: 2 qwen3-4b and 2
+# SMALL_ARCH replicas at FLEET_OVERLOAD x R, SHORT_QUERIES; 12d:
+# FAULT_QUERIES poisson arrivals at FAULT_LOAD x R, replica 0 down
+# FAULT_CRASH_SERVICES x s from the arrival of query FAULT_QUERIES // 4,
+# flaky at p FAULT_FLAKY_P throughout, and one engine under the
+# query-indexed ENGINE_FAULTS.  Over six runs of 12a on the CPU at smoke
+# width, odin_aware's share of 48 queries sent to the slowed replica read
+# 0.125-0.25 (round_robin's is 0.25 by construction), of 96 0.18-0.23; and
+# on an NVIDIA H100 80GB HBM3 at 700 W a queue at 2R over 48 queries
+# stayed under slo_shed's SLO.
+FLEET_REPLICAS, FLEET_PROBE_QUERIES = 4, 10
+FLEET_QUERIES, SHORT_QUERIES = 96, 48
+FLEET_SLOW_REPLICA, FLEET_LOAD, FLEET_MAX_BATCH = 2, 0.8, 4
+FLEET_OVERLOAD, FLEET_SLO_SERVICES, FLEET_QUEUE_CAP = 2.0, 3.0, 2
+SMALL_ARCH = "qwen2-0.5b"
+FAULT_QUERIES, FAULT_LOAD, FAULT_CRASH_SERVICES = 64, 0.4, 10.0
+FAULT_FLAKY_P, FAULT_RETRIES, FAULT_HEDGE_SERVICES = 0.1, 3, 2.0
+# The breaker's cooldown outlasts the retry schedule (0.05 + 0.1 + 0.2 s):
+# a retried query that arrived inside the window and lands on replica 0
+# after it recovers crashes again (the fault clock is its arrival), and the
+# breaker then keeps it off replica 0 for the rest of its retries.
+FAULT_COOLDOWN, FAULT_MIN_AVAILABILITY = 0.4, 0.99
+ENGINE_FAULTS, ENGINE_RETRIES, ENGINE_FAULT_QUERIES = \
+    "crash@5+3,flaky@0+1000:p=0.2", 2, 24
 
 
 def log(msg: str) -> None:
@@ -2355,6 +2438,552 @@ def phase_measured_db(cfg, params) -> dict:
     return dict(launches=launches, shares=shares)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: fleets, admission control, faults and QoS tiers
+
+class RunCounter:
+    """Counts an executor's forwards (``run_query``: every query,
+    ``run_batch`` dispatch and warm-up goes through it) and the rows they
+    carried, while active."""
+
+    def __init__(self, executor):
+        self.executor, self.calls, self.rows = executor, 0, 0
+
+    def __enter__(self):
+        orig = self.executor.run_query
+
+        def run_query(tokens, *a, **k):
+            self.calls += 1
+            self.rows += int(tokens.shape[0])
+            return orig(tokens, *a, **k)
+
+        self.executor.run_query = run_query
+        return self
+
+    def __exit__(self, *exc):
+        del self.executor.run_query
+        return False
+
+
+class K1Shapes:
+    """While active, counts every K1 launch the models make through
+    ``ops`` by shape, and keeps the inputs and output of the first launch
+    of each distinct shape; ``check`` then holds each against the plain
+    version on those inputs at the main limits.  Nothing here launches a
+    kernel, so the launch counts stay those of the path."""
+
+    def __init__(self):
+        self.counts, self.first = {}, {}
+
+    def __enter__(self):
+        self._saved = ops.flash_attention
+        fa = self._saved
+
+        def flash(q, k, v, *, causal=True, window=None, impl="auto"):
+            out = fa(q, k, v, causal=causal, window=window, impl=impl)
+            if impl != "ref":
+                key = (int(q.shape[0]), int(q.shape[1]), int(k.shape[1]),
+                       int(q.shape[2]), int(q.shape[3]), causal, window,
+                       str(q.dtype).replace("torch.", ""))
+                self.counts[key] = self.counts.get(key, 0) + 1
+                if key not in self.first:
+                    self.first[key] = (q.clone(), k.clone(), v.clone(),
+                                       out.clone())
+            return out
+
+        ops.flash_attention = flash
+        return self
+
+    def __exit__(self, *exc):
+        ops.flash_attention = self._saved
+        return False
+
+    def check(self) -> dict:
+        """Each distinct shape's first launch against the plain version
+        at MAIN_TOLERANCE and MAIN_RMS_LIMIT; returns the readings."""
+        out = {}
+        for key, (q, k, v, got) in self.first.items():
+            causal, window = key[5], key[6]
+            r = compare(got, flash_attention_ref(q, k, v, causal=causal,
+                                                 window=window),
+                        MAIN_TOLERANCE, f"phase 12's K1 launch {key}",
+                        MAIN_RMS_LIMIT)
+            out[key] = dict(r, launches=self.counts[key])
+            log(f"  K1 {key}: {self.counts[key]} launches; the first "
+                f"against the plain version on its inputs: max |err| "
+                f"{r['max_abs_err']:.3e}, rms err / rms ref "
+                f"{r['rms_err'] / r['rms_ref']:.3e} (limits "
+                f"{MAIN_TOLERANCE}, rms {MAIN_RMS_LIMIT})")
+        self.first.clear()
+        return out
+
+
+class ProbeCounter(HealthTracker):
+    """The fleet's circuit breaker, counting its probes: a dispatch to a
+    replica whose breaker went half-open (the first ``take_rewarm`` of
+    each half-open spell), per replica."""
+
+    made = []
+
+    def __init__(self, *a, **k):
+        super().__init__(*a, **k)
+        self.probes = [0] * self.num_replicas
+        self._spell = [False] * self.num_replicas
+        self.opens = [0] * self.num_replicas
+        ProbeCounter.made.append(self)
+
+    def healthy(self, r, now):
+        before = self.state(r)
+        ok = super().healthy(r, now)
+        if before == OPEN and self.state(r) == HALF_OPEN:
+            self._spell[r] = True
+        return ok
+
+    def take_rewarm(self, r):
+        if self._spell[r]:
+            self._spell[r] = False
+            self.probes[r] += 1
+        return super().take_rewarm(r)
+
+    def record_failure(self, r, now, until=float("nan")):
+        before = self.state(r)
+        super().record_failure(r, now, until=until)
+        if before != OPEN and self.state(r) == OPEN:
+            self.opens[r] += 1
+
+
+def fleet_engines(cfg, params, executor, n: int) -> list:
+    """``n`` fresh ODIN engines (4 stages, alpha 3) over one shared
+    executor: each keeps its own runtime, detector and estimates."""
+    return [ServingEngine(cfg, params, num_eps=4, scheduler="odin", alpha=3,
+                          executor=executor,
+                          device=executor.device) for _ in range(n)]
+
+
+def fleet_schedules(n: int, slow_replica=None) -> list:
+    """Per-replica slowdown schedules: SLOW_FACTOR on stage SLOW_EP of
+    ``slow_replica`` for the whole run, every other replica clean."""
+    def make(r):
+        slow = [1.0] * 4
+        if r == slow_replica:
+            slow[SLOW_EP] = SLOW_FACTOR
+        return lambda q: list(slow)
+    return [make(r) for r in range(n)]
+
+
+def fleet_line(label: str, trace, wall: float) -> dict:
+    s = trace.summary()
+    log(f"  {label}: {trace.num_queries} offered in {wall:.2f} s, served "
+        f"per replica {trace.replica_counts.tolist()}, shed "
+        f"{trace.num_shed}, failed {int(s['num_failed'])}; p50 "
+        f"{s['p50_latency_s']:.4f} s, p99 {s['p99_latency_s']:.4f} s, mean "
+        f"queue delay {s['mean_queue_delay_s']:.4f} s, mean service "
+        f"{s['mean_service_latency_s']:.4f} s, achieved load "
+        f"{s['achieved_load_qps']:.2f} q/s of {s['offered_load_qps']:.2f} "
+        f"offered")
+    return s
+
+
+def serve_fleet(label: str, engines, queries, schedules, counters,
+                **kw) -> tuple:
+    """``serve_cluster`` over ``engines``; raises unless every query is
+    accounted once (served, shed or failed), each replica's local slots
+    are filled once in order, and the executors ran exactly the served
+    queries (a shed query or a failed attempt runs nothing)."""
+    before = [(c.calls, c.rows) for c in counters]
+    t0 = time.perf_counter()
+    trace = serve_cluster(engines, queries, schedules, **kw)
+    wall = time.perf_counter() - t0
+    s = fleet_line(label, trace, wall)
+    rows = sum(c.rows - r0 for c, (_, r0) in zip(counters, before))
+    n = len(queries)
+    served = int(trace.replica_counts.sum())
+    failed = int(np.count_nonzero(trace.assignments == -2))
+    checks = {
+        "every query accounted once": trace.num_queries == n
+        and served + trace.num_shed + failed == n,
+        "failed = the summary's num_failed": failed == int(s["num_failed"]),
+        "local slots filled once, in order": all(
+            sorted(trace.local_indices[trace.assignments == r].tolist())
+            == list(range(int(trace.replica_counts[r])))
+            for r in range(len(engines))),
+        "each replica trace holds its served queries": all(
+            len(t.latencies) == c
+            for t, c in zip(trace.replicas, trace.replica_counts)),
+        "the executors ran exactly the served queries": rows == served,
+    }
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"{label}: {bad} (served {served}, shed "
+                             f"{trace.num_shed}, failed {failed}, rows run "
+                             f"{rows})")
+    return trace, s, rows
+
+
+def probe_fleet_rate(cfg, params, executor, queries) -> dict:
+    """A closed-loop probe of one clean replica: its service latency s.
+    The fleet rate is R = FLEET_REPLICAS / s, each replica serving one
+    query at a time: ODIN's trials run alone, and they are most of the
+    queries of a served run on this card (ROADMAP Queue 3).  The trace's
+    pipelined throughput (1 / bottleneck stage) is printed beside it."""
+    eng = fleet_engines(cfg, params, executor, 1)[0]
+    trace = eng.serve(queries[:FLEET_PROBE_QUERIES], lambda q: [1.0] * 4)
+    service = float(np.median(trace.service_latencies[4:]))
+    thr = float(np.median(trace.throughputs[4:]))
+    rate = FLEET_REPLICAS / service
+    log(f"  probe ({FLEET_PROBE_QUERIES} closed-loop queries of {SEQ} "
+        f"tokens, one clean replica; medians of the last "
+        f"{FLEET_PROBE_QUERIES - 4}): service s = {1e3 * service:.2f} ms, "
+        f"pipelined throughput {thr:.2f} q/s (1 / bottleneck stage); "
+        f"fleet rate R = {FLEET_REPLICAS} / s = {rate:.2f} q/s")
+    return dict(service=service, rate=rate)
+
+
+def bursty_at(rate: float, seed: int) -> dict:
+    """Bursty arrivals of mean rate ``rate``: bursts at 2x it, gaps at a
+    quarter of it, mean burst 0.75x the mean gap (12 arrivals)."""
+    return dict(workload="bursty", workload_kwargs=dict(
+        burst_rate=2.0 * rate, base_rate=0.25 * rate,
+        mean_burst=9.0 / rate, mean_gap=12.0 / rate, seed=seed))
+
+
+def phase_routers(cfg, params, ex, counters, queries, probe) -> dict:
+    """12a: FLEET_REPLICAS replicas, SLOW_FACTOR on one stage of replica
+    FLEET_SLOW_REPLICA only, bursty traffic at FLEET_LOAD x the probe's
+    fleet rate; round_robin, odin_aware, then odin_aware with fleet
+    rebatching (max_batch FLEET_MAX_BATCH, through run_batch)."""
+    wl = bursty_at(FLEET_LOAD * probe["rate"], seed=1)
+    log(f"  bursty at {FLEET_LOAD} x R: mean "
+        f"{FLEET_LOAD * probe['rate']:.2f} q/s (bursts "
+        f"{wl['workload_kwargs']['burst_rate']:.2f} q/s)")
+    out = {}
+    for label, kw in (("round_robin", dict(router="round_robin")),
+                      ("odin_aware", dict(router="odin_aware")),
+                      ("odin_aware, max_batch 4",
+                       dict(router="odin_aware",
+                            max_batch=FLEET_MAX_BATCH))):
+        engines = fleet_engines(cfg, params, ex, FLEET_REPLICAS)
+        before = counters[0].calls
+        trace, s, rows = serve_fleet(
+            f"12a {label}", engines,
+            queries[:SHORT_QUERIES] if "max_batch" in kw else queries,
+            fleet_schedules(FLEET_REPLICAS, FLEET_SLOW_REPLICA), counters,
+            **kw, **wl)
+        log(f"    dispatches {counters[0].calls - before} for {rows} rows; "
+            f"rebalances per replica "
+            f"{[t.num_rebalances for t in trace.replicas]}")
+        if trace.num_shed or int(s["num_failed"]):
+            raise AssertionError(f"12a {label}: queries shed or failed")
+        out[label] = trace
+    to_slow = {k: int(t.replica_counts[FLEET_SLOW_REPLICA])
+               for k, t in out.items()}
+    log(f"  queries routed to the slowed replica {FLEET_SLOW_REPLICA}: "
+        f"{to_slow}")
+    if not to_slow["odin_aware"] < to_slow["round_robin"]:
+        raise AssertionError(f"odin_aware routed no fewer queries to the "
+                             f"slowed replica than round_robin: {to_slow}")
+    return dict(to_slow=to_slow)
+
+
+def phase_admission(cfg, params, ex, counters, queries, probe) -> dict:
+    """12b: the fleet at FLEET_OVERLOAD x the probe's rate under slo_shed
+    (an SLO of FLEET_SLO_SERVICES probe services), then queue_cap; then
+    one engine under slo_shed at FLEET_OVERLOAD x one replica's rate."""
+    slo = FLEET_SLO_SERVICES * probe["service"]
+    wl = dict(workload="poisson", workload_kwargs=dict(
+        rate=FLEET_OVERLOAD * probe["rate"], seed=2))
+    log(f"  poisson at {FLEET_OVERLOAD} x R = "
+        f"{FLEET_OVERLOAD * probe['rate']:.2f} q/s; slo_shed's SLO "
+        f"{1e3 * slo:.2f} ms")
+    sheds = {}
+    for label, kw in (("slo_shed", dict(admission="slo_shed",
+                                        admission_kwargs=dict(slo=slo))),
+                      ("queue_cap", dict(admission="queue_cap",
+                                         admission_kwargs=dict(
+                                             cap=FLEET_QUEUE_CAP)))):
+        trace, s, _ = serve_fleet(
+            f"12b {label}", fleet_engines(cfg, params, ex, FLEET_REPLICAS),
+            queries if label == "slo_shed" else queries[:SHORT_QUERIES],
+            fleet_schedules(FLEET_REPLICAS), counters,
+            router="odin_aware", **kw, **wl)
+        log(f"    slo_attainment {s['slo_attainment']:.3f}, goodput "
+            f"{s['goodput_qps']:.2f} q/s")
+        sheds[label] = trace.num_shed
+    if not sheds["slo_shed"] > 0:
+        raise AssertionError("slo_shed shed nothing at 2x the fleet rate")
+
+    eng = fleet_engines(cfg, params, ex, 1)[0]
+    n = SHORT_QUERIES
+    before = counters[0].rows
+    t0 = time.perf_counter()
+    trace = eng.serve(queries[:n], lambda q: [1.0] * 4, workload="poisson",
+                      workload_kwargs=dict(
+                          rate=FLEET_OVERLOAD * probe["rate"]
+                          / FLEET_REPLICAS, seed=3),
+                      admission="slo_shed", admission_kwargs=dict(slo=slo))
+    wall = time.perf_counter() - t0
+    ran = counters[0].rows - before
+    s = trace.summary()
+    log(f"  12b one engine under slo_shed: {n} offered in {wall:.2f} s, "
+        f"shed {int(s['num_shed'])}, served {len(trace.latencies)}, rows "
+        f"run {ran}; p99 {s['p99_latency_s']:.4f} s, slo_attainment "
+        f"{s['slo_attainment']:.3f}")
+    if not (s["num_shed"] > 0 and len(trace.latencies) + s["num_shed"] == n
+            and ran == len(trace.latencies)):
+        raise AssertionError(f"12b one engine: shed {s['num_shed']}, served "
+                             f"{len(trace.latencies)}, ran {ran} of {n}")
+    sheds["engine slo_shed"] = int(s["num_shed"])
+    return dict(sheds=sheds)
+
+
+#: The per-tier keys of a tiered fleet summary, held equal to the JAX
+#: package's ClusterTrace.summary() by tests/test_torch_fleet_live.py.
+TIER_KEYS = ("num", "shed", "p50_latency_s", "p99_latency_s",
+             "deadline_attainment", "downgraded")
+
+
+def phase_qos(qcfg, qparams, qex, scfg, sparams, sex, counters, queries,
+              probe) -> dict:
+    """12c: 2 qwen3-4b replicas and 2 qwen2-0.5b replicas (pool "small"),
+    tiers interactive and best_effort, poisson at FLEET_OVERLOAD x the
+    probe's rate: downgrade with value_shed, then edf with value_shed."""
+    wl = dict(workload="poisson", workload_kwargs=dict(
+        rate=FLEET_OVERLOAD * probe["rate"], seed=4))
+    out = {}
+    for router in ("downgrade", "edf"):
+        engines = (fleet_engines(qcfg, qparams, qex, 2)
+                   + fleet_engines(scfg, sparams, sex, 2))
+        small_before = counters[1].rows
+        trace, s, _ = serve_fleet(
+            f"12c {router}", engines, queries[:SHORT_QUERIES],
+            fleet_schedules(4),
+            counters, router=router, pools=["default", "default", "small",
+                                            "small"],
+            tiers="interactive,best_effort", admission="value_shed", **wl)
+        small_rows = counters[1].rows - small_before
+        keys = ["offered_value", "realized_value"] + [
+            f"tier_{t}_{k}" for t in ("interactive", "best_effort")
+            for k in TIER_KEYS if k != "downgraded" or router == "downgrade"]
+        log("    " + ", ".join(f"{k} {s[k]:.4g}" for k in keys if k in s))
+        missing = [k for k in keys if k not in s]
+        if missing:
+            raise AssertionError(f"12c {router}: summary lacks {missing}")
+        if router == "downgrade":
+            down = {t: s[f"tier_{t}_downgraded"]
+                    for t in ("interactive", "best_effort")}
+            if down["interactive"] != 0 or not down["best_effort"] > 0:
+                raise AssertionError(f"12c downgrades by tier: {down} (only "
+                                     f"best_effort may be downgraded)")
+        if not small_rows == int(trace.replica_counts[2:].sum()) > 0:
+            raise AssertionError(f"12c {router}: the small pool ran "
+                                 f"{small_rows} rows for "
+                                 f"{trace.replica_counts[2:].tolist()}")
+        out[router] = dict(small=small_rows, shed=trace.num_shed)
+    return out
+
+
+class StandIn:
+    """A deterministic executor on the host for the query-indexed fault
+    plan: every query takes the same virtual time; it records the queries
+    whose execution completed."""
+
+    def __init__(self):
+        self.done = []
+
+    def begin_query(self, q):
+        return None
+
+    def execute(self, q, step):
+        self.done.append(int(q))
+        return QueryRecord(service_latency=0.04, throughput=100.0)
+
+
+class Completed:
+    """Wraps an engine's query executor and records the queries whose
+    execution completed."""
+
+    def __init__(self, inner):
+        self.inner, self.done = inner, []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def execute(self, q, step):
+        rec = self.inner.execute(q, step)
+        self.done.append(int(q))
+        return rec
+
+
+def phase_faults(cfg, params, ex, counters, queries, probe) -> dict:
+    """12d: a crash of replica 0 for FAULT_CRASH_SERVICES probe services
+    and a flaky window over the whole run (p FAULT_FLAKY_P), poisson at
+    FAULT_LOAD x the probe's rate, retries FAULT_RETRIES and hedging after
+    FAULT_HEDGE_SERVICES services; then the same with retries 0; then one
+    engine under the query-indexed plan ENGINE_FAULTS, held against a
+    deterministic stand-in."""
+    rate = FAULT_LOAD * probe["rate"]
+    # The crash starts at the arrival of the fleet's query n // 4, on the
+    # workload's clock (the fleet loop draws the same arrivals).
+    arrivals = np.cumsum(make_workload("poisson", rate=rate, seed=5)
+                         .inter_arrivals(len(queries)))
+    start = float(arrivals[len(queries) // 4])
+    dur = FAULT_CRASH_SERVICES * probe["service"]
+    plan = (f"crash@{start!r}+{dur!r}:r=0,"
+            f"flaky@0+{10 * float(arrivals[-1])!r}:p={FAULT_FLAKY_P}")
+    hedge = FAULT_HEDGE_SERVICES * probe["service"]
+    log(f"  poisson at {FAULT_LOAD} x R = {rate:.2f} q/s over "
+        f"{float(arrivals[-1]):.3f} s of arrivals; plan {plan}; hedge_after "
+        f"{1e3 * hedge:.2f} ms; breaker cooldown {FAULT_COOLDOWN} s")
+    warms = {"calls": 0}
+    orig_warm = ex.warm_buckets
+
+    def warm_buckets(*a, **k):
+        warms["calls"] += 1
+        return orig_warm(*a, **k)
+
+    runs = {}
+    cluster_lib.HealthTracker = ProbeCounter
+    ex.warm_buckets = warm_buckets
+    try:
+        for retries in (FAULT_RETRIES, 0):
+            ProbeCounter.made.clear()
+            warms["calls"] = 0
+            label = f"12d retries {retries}"
+            trace, s, _ = serve_fleet(
+                label, fleet_engines(cfg, params, ex, FLEET_REPLICAS),
+                queries, fleet_schedules(FLEET_REPLICAS), counters,
+                router="odin_aware", workload="poisson",
+                workload_kwargs=dict(rate=rate, seed=5), faults=plan,
+                retries=retries, hedge_after=hedge,
+                health_kwargs=dict(cooldown=FAULT_COOLDOWN))
+            (tracker,) = ProbeCounter.made
+            rep0 = trace.replicas[0]
+            in_window = (rep0.arrival_times >= start) & \
+                (rep0.arrival_times < start + dur)
+            starts = rep0.arrival_times + rep0.queue_delays
+            late = int(np.count_nonzero((starts >= start)
+                                        & (starts < start + dur)))
+            admitted = trace.num_queries - trace.num_shed
+            completed = int(trace.replica_counts.sum())
+            log(f"    availability {s['availability']:.4f}, retried "
+                f"{int(s['num_retried'])}, hedged {int(s['num_hedged'])}, "
+                f"wasted_work_frac {s['wasted_work_frac']:.4f}, downtime "
+                f"{s['downtime_s']:.3f} s; breaker opens per replica "
+                f"{tracker.opens}, probes {tracker.probes}, on_recover "
+                f"re-warms {warms['calls']}; replica 0 served "
+                f"{len(rep0.arrival_times)}, arrivals in its window "
+                f"{int(in_window.sum())}, starts on the host ledger in its "
+                f"window {late} (arrived before it)")
+            checks = {
+                "no dispatch of replica 0 inside its window (the fault "
+                "clock is the query's arrival)": not bool(in_window.any()),
+                "on_recover once per breaker probe":
+                    warms["calls"] == sum(tracker.probes),
+                "replica 0's breaker opened, and was probed after its "
+                "window": tracker.opens[0] >= 1 and tracker.probes[0] >= 1,
+                "completed + failed = admitted":
+                    completed + int(s["num_failed"]) == admitted,
+            }
+            bad = [k for k, ok in checks.items() if not ok]
+            if bad:
+                raise AssertionError(f"{label}: {bad}")
+            runs[retries] = s
+    finally:
+        cluster_lib.HealthTracker = HealthTracker
+        del ex.warm_buckets
+    a, b = runs[FAULT_RETRIES]["availability"], runs[0]["availability"]
+    if not (a >= FAULT_MIN_AVAILABILITY and a > b):
+        raise AssertionError(f"availability with retries {a}, without {b}")
+
+    # One engine, the query-indexed plan: outcomes depend on (seed, query,
+    # attempt) only, so the card run equals a stand-in on the host.
+    n = ENGINE_FAULT_QUERIES
+    eng = fleet_engines(cfg, params, ex, 1)[0]
+    made = []
+    orig_qe = eng.query_executor
+
+    def query_executor(*a, **k):
+        made.append(Completed(orig_qe(*a, **k)))
+        return made[-1]
+
+    eng.query_executor = query_executor
+    t0 = time.perf_counter()
+    card = eng.serve(queries[:n], lambda q: [1.0] * 4, faults=ENGINE_FAULTS,
+                     retries=ENGINE_RETRIES)
+    wall = time.perf_counter() - t0
+    stand_in = StandIn()
+    runtime = RebalanceRuntime(make_scheduler("none"), [9, 9, 9, 9])
+    host = run_pipeline(stand_in, runtime, n, faults=ENGINE_FAULTS,
+                        retries=ENGINE_RETRIES)
+
+    def outcome(trace, done):
+        return (int(trace.num_failed), int(trace.num_retried),
+                sorted(set(range(n)) - set(done)))
+
+    got, want = outcome(card, made[0].done), outcome(host, stand_in.done)
+    log(f"  12d one engine, plan {ENGINE_FAULTS!r}, retries "
+        f"{ENGINE_RETRIES}, {n} closed-loop queries in {wall:.2f} s: "
+        f"(num_failed, num_retried, failed queries) on the card {got}, "
+        f"the stand-in on the host {want}")
+    if got != want or not got[0] >= 3:
+        raise AssertionError(f"faulted engine {got} != stand-in {want}")
+    return dict(availability=(a, b), engine=got)
+
+
+def phase_fleet(qcfg, qparams, scfg, sparams) -> dict:
+    """Phase 12: qwen3-4b fleets (and a qwen2-0.5b pool) through
+    ``serve_cluster`` and the engine's ``serve``; every K1 launch counted,
+    each distinct shape held against the plain version."""
+    device = qparams["embed"]["table"].device
+    qex = ServingEngine(qcfg, qparams, num_eps=4, device=device).executor
+    sex = ServingEngine(scfg, sparams, num_eps=4, device=device).executor
+    # Every dispatch shape of the phase, warmed before anything is counted
+    # (a fleet batch of n rows runs n rows; on_recover re-warms (1, SEQ)).
+    for rows in range(1, FLEET_MAX_BATCH + 1):
+        qex.ensure_warm(rows, SEQ)
+    sex.ensure_warm(1, SEQ)
+    rng = np.random.default_rng(12)
+    vocab = min(qcfg.vocab_size, scfg.vocab_size)
+
+    def draw(n):
+        return [torch.as_tensor(rng.integers(0, vocab, (1, SEQ)),
+                                device=device) for _ in range(n)]
+
+    queries = draw(FLEET_QUERIES)
+    counters = [RunCounter(qex), RunCounter(sex)]
+    reset_counts(flash_attention)
+    with counters[0], counters[1], K1Shapes() as shapes:
+        probe = probe_fleet_rate(qcfg, qparams, qex, queries)
+        routers = phase_routers(qcfg, qparams, qex, counters, queries, probe)
+        admission = phase_admission(qcfg, qparams, qex, counters, queries,
+                                    probe)
+        qos = phase_qos(qcfg, qparams, qex, scfg, sparams, sex, counters,
+                        queries, probe)
+        faults = phase_faults(qcfg, qparams, qex, counters,
+                              queries[:FAULT_QUERIES], probe)
+    launches = flash_attention.launches
+    want = (qcfg.num_blocks * counters[0].calls
+            + scfg.num_blocks * counters[1].calls)
+    log(f"  K1 launches in phase 12: {launches} = {qcfg.num_blocks} x "
+        f"{counters[0].calls} qwen3-4b forwards ({counters[0].rows} rows) + "
+        f"{scfg.num_blocks} x {counters[1].calls} qwen2-0.5b forwards, "
+        f"{flash_attention.tensor_core_launches} on the tensor cores; by "
+        f"shape {shapes.counts}")
+    if not (launches == flash_attention.tensor_core_launches == want
+            == sum(shapes.counts.values())):
+        raise AssertionError(f"phase 12: K1 launched {launches} times, "
+                             f"expected {want}")
+    small = (1, scfg.num_heads, scfg.num_kv_heads, SEQ, scfg.head_dim, True,
+             None, "bfloat16")
+    if not shapes.counts.get(small, 0) == scfg.num_blocks * \
+            counters[1].calls > 0:
+        raise AssertionError(f"qwen2-0.5b's K1 shape {small} launched "
+                             f"{shapes.counts.get(small, 0)} times")
+    readings = shapes.check()
+    return dict(launches=launches, readings=readings, routers=routers,
+                admission=admission, qos=qos, faults=faults)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
@@ -2426,6 +3055,11 @@ def main() -> None:
                    phase_mesh, qcfg, qparams, hybrid)
     measured = phase("phase 11d: the simulator over block times measured "
                      "here", phase_measured_db, qcfg, qparams)
+    scfg, sparams = init_model(get_config(SMALL_ARCH))
+    fleet = phase("phase 12: fleets, admission, faults and QoS tiers "
+                  "(serve_cluster)", phase_fleet, qcfg, qparams, scfg,
+                  sparams)
+    del sparams
     k1_phase11 = (hybrid["launches"] + oracle["launches"]
                   + meshed["launches"] + measured["launches"])
     log(f"  K1 launches in phase 11: {k1_phase11} = {hybrid['launches']} "
@@ -2467,19 +3101,20 @@ def main() -> None:
                    + [m["max_abs_err"] for key, m in family.items()
                       if key[0] == kernel])
 
-    k1 = dict(main_k1[SEQ], max_abs_err=worst("K1", main_k1.values()))
+    k1 = dict(main_k1[SEQ], max_abs_err=worst(
+        "K1", list(main_k1.values()) + list(fleet["readings"].values())))
     k2 = dict(k2, max_abs_err=worst("K2", [k2]))
     k3 = dict(k3, max_abs_err=worst("K3", [k3]))
     # Launches on the main paths: the closed-loop serves (qwen3-4b,
-    # deepseek-moe-16b, hubert-xlarge), the batched one and phase 11's
-    # serves and block-time measurement for K1; the
+    # deepseek-moe-16b, hubert-xlarge), the batched one, phase 11's
+    # serves and block-time measurement and phase 12's fleets for K1; the
     # decode steps of every cached path for K2; the closed-loop and batched
     # serves of mamba2-370m and jamba's forward and prefill for K3.
     rows = [
         ("flash_attention", "flash_attention.py:96",
          served["counts"]["tensor_core_launches"]
          + batched["qwen3-4b"]["launches"] + ds["served"]["launches"]
-         + hub["served"]["launches"] + k1_phase11, k1),
+         + hub["served"]["launches"] + k1_phase11 + fleet["launches"], k1),
         ("decode_attention", "decode_attention.py:78",
          cached["qwen3-4b"]["launches"] + sum(c["k2"] for c in cached_10),
          k2),

@@ -40,12 +40,8 @@ Dispatch rules (first match wins — docs/API.md):
 * ``engine`` set                            → live single-engine serving
 * ``executor`` + ``runtime`` set            → the raw run loop
 
-The port's copy of the JAX package's ``api.py``; only import paths
-differ, and the fleet targets (``db`` with a ``cluster``, ``replicas``,
-``engines``) raise ``NotImplementedError`` until the fleet drivers are
-copied (ROADMAP.md Queue 1 item 6f), as admission, faults, retries and
-tiers do in the port's run loop.  ``tests/test_torch_api.py`` holds the
-rest equal to the original.
+The port's copy of the JAX package's ``api.py``; only import
+paths differ.  ``tests/test_torch_api.py`` holds it equal to the original.
 """
 from __future__ import annotations
 
@@ -330,13 +326,34 @@ def run(spec: RunSpec):
                   faults=spec.faults.plan, retries=spec.retries.policy,
                   tiers=spec.tiers.spec, tiers_kwargs=spec.tiers.kwargs)
 
+    def _fleet(cl: ClusterSpec) -> dict:
+        return dict(router=cl.router, router_kwargs=cl.router_kwargs,
+                    autoscaler=cl.autoscaler,
+                    autoscaler_kwargs=cl.autoscaler_kwargs,
+                    max_batch=cl.max_batch,
+                    hedge_after=spec.faults.hedge_after,
+                    health_kwargs=spec.faults.health_kwargs,
+                    when_all_unhealthy=spec.faults.when_all_unhealthy,
+                    pools=(list(cl.pools) if cl.pools is not None
+                           else None))
+
     if spec.db is not None:
         if cl is not None:
             if spec.mesh is not None:
                 raise NotImplementedError(
                     "mesh-sliced stages are single-pipeline this "
                     "release (ROADMAP: cluster mesh)")
-            _fleet_not_ported("a db target with a ClusterSpec")
+            from repro_torch.cluster.sim import _simulate_cluster_impl
+            return _simulate_cluster_impl(
+                spec.db, spec.num_eps, cl.num_replicas,
+                scheduler=sch.name, alpha=sch.alpha,
+                rel_threshold=sch.rel_threshold,
+                initial_config=(list(sch.initial_config)
+                                if sch.initial_config is not None
+                                else None),
+                num_queries=_count(spec), events=spec.events,
+                events_time_indexed=spec.events_time_indexed,
+                databases=cl.databases, **common, **_fleet(cl))
         from repro_torch.core.simulator import _simulate_impl
         if spec.faults.hedge_after is not None:
             raise ValueError("hedging needs a fleet target "
@@ -368,10 +385,23 @@ def run(spec: RunSpec):
             raise ValueError("with a replicas target, fault plans are "
                              "attached per-Replica (Replica(faults=...)),"
                              " not on the RunSpec")
-        _fleet_not_ported("a replicas target")
+        from repro_torch.cluster.cluster import _run_cluster_impl
+        fl = _fleet(cl if cl is not None else ClusterSpec())
+        fl.pop("pools")
+        return _run_cluster_impl(
+            spec.replicas, _count(spec), workload=wl.name,
+            workload_kwargs=wl.kwargs, scheduler_name=_name_of(sch.name),
+            admission=adm.name, admission_kwargs=adm.kwargs,
+            trace_mode=tel.trace_mode, metrics_sink=tel.metrics_sink,
+            sink_interval=tel.sink_interval,
+            retries=spec.retries.policy,
+            tiers=spec.tiers.spec, tiers_kwargs=spec.tiers.kwargs, **fl)
 
     if spec.engines is not None:
-        _fleet_not_ported("an engines target")
+        from repro_torch.cluster.live import _serve_cluster_impl
+        return _serve_cluster_impl(
+            spec.engines, spec.queries, spec.schedule, **common,
+            **_fleet(cl if cl is not None else ClusterSpec()))
 
     if spec.engine is not None:
         for bad, msg in ((spec.faults.hedge_after, "hedging"),
@@ -399,12 +429,6 @@ def run(spec: RunSpec):
         "RunSpec names no target: set db (simulate), engine/engines "
         "(live), replicas (fleet driver), or executor + runtime "
         "(raw run loop)")
-
-
-def _fleet_not_ported(target: str) -> None:
-    raise NotImplementedError(
-        f"{target} needs the fleet drivers, which the port has not copied "
-        f"yet (ROADMAP.md Queue 1 item 6f)")
 
 
 def _name_of(scheduler) -> str:

@@ -13,17 +13,15 @@ thesis (provision/control around the planner) combined with Strait's
   the scheduler, and are reported separately so SLO attainment is
   measured on *admitted goodput*.
 * An :class:`Autoscaler` decides, per fleet arrival, which replicas of
-  a :class:`~repro.cluster.Cluster` are active — routers only ever see
+  a :class:`~repro_torch.cluster.Cluster` are active — routers only ever see
   the active set, so draining a replica simply stops feeding it.
 
 Both are pluggable through string-keyed registries mirroring
-``repro_torch.schedulers`` / ``repro_torch.workloads`` / ``repro.cluster``
-(:mod:`repro.control.registry`).  See docs/CONTROL.md.
+``repro_torch.schedulers`` / ``repro_torch.workloads`` / ``repro_torch.cluster``
+(:mod:`repro_torch.control.registry`).  See docs/CONTROL.md.
 
-The port's copy of the JAX package's ``control/base.py``; only import paths
-differ, and the fleet's ``ReplicaView``
-annotation.  ``tests/test_torch_workloads.py`` holds it equal to
-the original.
+The port's copy of the JAX package's ``control/base.py``; only import
+paths differ.  ``tests/test_torch_fleet.py`` holds it equal to the original.
 """
 from __future__ import annotations
 
@@ -36,10 +34,8 @@ from typing import (
     runtime_checkable,
 )
 
-if TYPE_CHECKING:
-    # The fleet's ReplicaView waits for the port's fleet slice (ROADMAP
-    # item 6f); the annotation below stays a name.
-    ReplicaView = object
+if TYPE_CHECKING:  # annotation-only: keeps control <-> cluster acyclic
+    from repro_torch.cluster.base import ReplicaView
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +67,7 @@ class AdmissionView:
     #: configuration (the runtime's ``estimated_service_latency()``:
     #: occupied stages x bottleneck beat); NaN before the first poll.
     est_latency: float = float("nan")
-    #: QoS tier index of the arrival (``repro.qos``); ``None`` when the
+    #: QoS tier index of the arrival (``repro_torch.qos``); ``None`` when the
     #: run has no tiers configured.  The remaining QoS fields default
     #: to "one anonymous tier of unit value with no deadline", so
     #: tier-blind policies and pre-QoS call sites are unaffected.

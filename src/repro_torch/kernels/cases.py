@@ -52,7 +52,8 @@ BATCHED_MAIN_CASES = [(8, 32, 8, s, 128, True, None, "bfloat16")
 # The paths of the MoE and embedding-input families at their published
 # widths, held at the main limits below: group 1 (MHA) on the tensor-core
 # route, D 80 bidirectional, group 7 over a length that is not a multiple of
-# 128, and a window that bites (it is below S).
+# 128, and a window that bites (it is below S).  The last is the small-model
+# pool of a mixed fleet: qwen2-0.5b at full width, group 7 at D 64.
 FAMILY_MAIN_CASES = [
     (1, 16, 16, 1024, 128, True, None, "bfloat16"),   # deepseek-moe-16b
     (8, 16, 16, 1024, 128, True, None, "bfloat16"),   # deepseek, 8 rows
@@ -62,6 +63,7 @@ FAMILY_MAIN_CASES = [
     (1, 56, 8, 2944, 128, True, None, "bfloat16"),
     (1, 48, 8, 4608, 128, True, 4096, "bfloat16"),    # mixtral-8x22b
     (1, 64, 8, 1024, 128, True, None, "bfloat16"),    # jamba-1.5-large
+    (1, 14, 2, 1024, 64, True, None, "bfloat16"),     # qwen2-0.5b
 ]
 
 # Elementwise |got - want| <= atol + rtol |want|.  The JAX package's limits

@@ -36,9 +36,11 @@ modelled bottleneck and its collective share.  Every stage still runs on
 the one card, and no slice of the card is resized: wall-clock service
 latencies stay the measured ones.
 
-``serve`` is a thin wrapper over :func:`repro_torch.api.run`.  Admission,
-faults, retries and QoS tiers raise ``NotImplementedError`` in the port's
-run loop until ROADMAP item 6f.
+``serve`` is a thin wrapper over :func:`repro_torch.api.run`, with the
+JAX engine's admission policies, fault injection, retries and QoS tiers
+(``repro_torch.control``, ``faults``, ``qos``).  A fleet of engines runs
+through :func:`repro_torch.cluster.serve_cluster`; same-arch replicas
+share one executor.
 """
 from __future__ import annotations
 
@@ -632,9 +634,21 @@ class ServingEngine:
         :class:`~repro_torch.telemetry.StreamingTrace`, sinks receive
         periodic snapshots in either mode.
 
-        ``admission``, ``faults``, ``retries`` and ``tiers`` are the JAX
-        engine's arguments; the port's run loop raises
-        ``NotImplementedError`` for them until ROADMAP item 6f.
+        ``admission`` selects a :mod:`repro_torch.control` admission
+        policy (e.g. ``admission="slo_shed", admission_kwargs={"slo":
+        0.25}``, the SLO in wall-clock seconds); shed queries never reach
+        the executor.
+
+        ``faults`` / ``retries`` inject deterministic failures and arm the
+        retry budget by wrapping this engine's executor in a
+        :class:`~repro_torch.faults.FaultingExecutor`; a single engine's
+        fault windows are indexed by query.  Only
+        :class:`~repro_torch.util.errors.TransientQueryError` and its
+        subclasses are retried: any other error (a CUDA error, a kernel
+        that fails to build) ends the run.
+
+        ``tiers`` / ``tiers_kwargs`` stamp arrivals with QoS tiers, drawn
+        in the shared run loop as in the simulator.
         """
         seq_max = max((int(t.shape[-1]) for t in queries), default=1)
         former = resolve_batching(batching, max_batch=max_batch,

@@ -1,7 +1,6 @@
 """Typed error hierarchy for the serving stack.
 
-Retry logic (the JAX package's ``repro.faults``; the port's waits for
-ROADMAP item 6f) dispatches on the transient /
+Retry logic (:mod:`repro_torch.faults`) dispatches on the transient /
 permanent split: anything deriving from :class:`TransientQueryError`
 may be requeued against the per-query retry budget, everything else
 propagates.  The hierarchy is deliberately small — fault kinds map

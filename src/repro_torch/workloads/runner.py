@@ -37,16 +37,16 @@ change, or the chunk cap.  Two flavors share the code:
   have already arrived are stacked and executed together, so a burst
   pays one set of stage dispatches instead of one per query.
 
-Incremental driving (``repro.cluster``): the loop's state — admission
+Incremental driving (``repro_torch.cluster``): the loop's state — admission
 ledger, per-query arrays, rebalance-counter snapshots — lives in
 :class:`PipelineRunner`, which also supports being fed one query at a
 time via :meth:`PipelineRunner.step`.  A multi-replica
-:class:`~repro.cluster.Cluster` owns one runner per replica and routes
+:class:`~repro_torch.cluster.Cluster` owns one runner per replica and routes
 each fleet arrival to one of them; ``run_pipeline`` itself is the
 single-pipeline driver over the same runner.
 
-Admission control (``repro.control``, docs/CONTROL.md): an
-:class:`~repro.control.AdmissionPolicy` may shed arrivals the pipeline
+Admission control (``repro_torch.control``, docs/CONTROL.md): an
+:class:`~repro_torch.control.AdmissionPolicy` may shed arrivals the pipeline
 cannot serve within its SLO.  A shed query never executes, never polls
 the scheduler, and never advances the admission ledger; its arrival
 time is recorded so the finished trace reports offered load, shed rate
@@ -75,9 +75,7 @@ loop would).  With no former attached every batching branch is bypassed
 — pre-former runs are bit-identical.
 
 The port's copy of the JAX package's ``workloads/runner.py``; only import
-paths differ, and the branches that wait for later slices (admission,
-faults, retries, tiers: ROADMAP.md item 6f).
-``tests/test_torch_workloads.py`` holds it equal to the original.
+paths differ.  ``tests/test_torch_workloads.py`` holds it equal to the original.
 """
 from __future__ import annotations
 
@@ -253,7 +251,7 @@ class PipelineRunner:
       :func:`run_pipeline`: consumes a whole arrival array, using the
       batch-granular fast path where the executor supports it.
     * :meth:`step` — feed exactly one query (the next one) with an
-      explicit arrival time; used by :class:`repro.cluster.Cluster`,
+      explicit arrival time; used by :class:`repro_torch.cluster.Cluster`,
       which interleaves routing decisions between queries and therefore
       cannot hand the loop the whole arrival stream upfront.
 
@@ -262,7 +260,7 @@ class PipelineRunner:
     *expected* share, not the whole fleet), and :meth:`finish` trims to
     the number actually served.
 
-    ``admission`` is an optional :class:`~repro.control.AdmissionPolicy`
+    ``admission`` is an optional :class:`~repro_torch.control.AdmissionPolicy`
     instance; shed queries are recorded in :attr:`shed_arrivals` and
     the result arrays only ever hold *admitted* queries, so the dense
     array index and the global query index diverge once anything is
@@ -322,7 +320,7 @@ class PipelineRunner:
         self.shed_arrivals: List[float] = []
         self.shed_indices: List[int] = []
 
-        # QoS tiers (repro.qos; docs/QOS.md): a TierPlan stamps every
+        # QoS tiers (repro_torch.qos; docs/QOS.md): a TierPlan stamps every
         # query this runner sees (indexed by the global query id) with
         # a priority class, a relative deadline, and an SLO value.
         # None = every tier branch below is dead code — no-tier runs
@@ -343,7 +341,7 @@ class PipelineRunner:
             self.shed_tier_counts = None
         self.shed_value = 0.0          # offered value lost to shedding
 
-        # Fault tolerance (repro.faults; docs/FAULTS.md): a RetrySpec
+        # Fault tolerance (repro_torch.faults; docs/FAULTS.md): a RetrySpec
         # arms requeue-on-failure in :meth:`run`; a fault-injecting
         # executor arms the failure accounting even with no budget
         # (every transient failure is then terminal).  Neither present
@@ -911,7 +909,7 @@ class PipelineRunner:
             m = self._admit_horizon(q, m, arrivals, occ_est=occ)
         return m
 
-    # -- admission control (repro.control; docs/CONTROL.md) ------------------
+    # -- admission control (repro_torch.control; docs/CONTROL.md) ------------------
     def _view(self, gq: int, arrival: Optional[float], wait: float,
               est_service: float, est_latency: float) -> AdmissionView:
         """The admission view for query ``gq`` — one construction path
@@ -1509,7 +1507,7 @@ def _run_pipeline_impl(executor: QueryExecutor,
     executor supports ``execute_many`` (benchmark baseline / debugging);
     ``max_chunk`` overrides the executor's preferred chunk cap.
 
-    ``admission`` selects an :class:`~repro.control.AdmissionPolicy`
+    ``admission`` selects an :class:`~repro_torch.control.AdmissionPolicy`
     (registry name + ``admission_kwargs``, or an instance;
     docs/CONTROL.md).  ``None`` / ``"none"`` admits everything —
     closed-loop results are bit-identical to a run without a control
@@ -1533,32 +1531,37 @@ def _run_pipeline_impl(executor: QueryExecutor,
     accounting-only (token counters in the trace).
 
     ``tiers`` / ``tiers_kwargs`` stamp every arrival with a QoS tier
-    (``repro.qos``, docs/QOS.md): tier-aware admission policies see
+    (``repro_torch.qos``, docs/QOS.md): tier-aware admission policies see
     priority/deadline/value on their views, batch formation refuses
     low-priority extensions of high-priority dispatches, and the trace
     grows per-tier latency/attainment/value accounting.  ``None`` =
     tiers unarmed, bit-identical to pre-QoS runs.
     """
-    # Admission policies, fault injection, retries and QoS tiers are
-    # ROADMAP item 6f; until they are ported only the disabled control
-    # plane runs ("none" admits everything, exactly like None).
-    if admission is None and admission_kwargs:
-        raise ValueError("admission_kwargs given but no admission policy "
-                         "selected")
-    deferred = [name for name, given in (
-        ("admission", admission not in (None, "none")),
-        ("faults", faults is not None),
-        ("retries", retries is not None),
-        ("tiers", tiers is not None or bool(tiers_kwargs)))
-        if given]
-    if deferred:
-        raise NotImplementedError(
-            f"{', '.join(deferred)}: the port has no admission policies, "
-            f"fault injection, retries or QoS tiers yet (ROADMAP.md Queue 1 "
-            f"item 6f)")
-    policy = None
+    # Deferred import: repro_torch.control registers its builtins on first
+    # use; the run loop itself only needs the resolver.
+    from repro_torch.control.registry import resolve_admission
+    policy = resolve_admission(admission, admission_kwargs)
+
     tier_plan = None
+    if tiers is not None or tiers_kwargs:
+        from repro_torch.qos import resolve_tiers
+        tier_plan = resolve_tiers(tiers, tiers_kwargs, num_queries)
+
+    # Fault tolerance (repro_torch.faults; docs/FAULTS.md): wrap the executor
+    # in a fault injector and arm the runner's retry budget.  Both
+    # default off — the wrapped/armed branches are then never taken and
+    # pre-faults traces stay bit-identical.
     retry_spec = None
+    if faults is not None or retries is not None:
+        from repro_torch.faults import (FaultingExecutor, resolve_faults,
+                                  resolve_retries)
+        retry_spec = resolve_retries(retries)
+        plan = resolve_faults(faults)
+        if plan is not None:
+            executor = FaultingExecutor(
+                executor, plan,
+                timeout=(retry_spec.timeout if retry_spec is not None
+                         else None))
 
     telemetry = None
     if trace_mode == "streaming" or metrics_sink is not None:

@@ -1,8 +1,7 @@
 """The port's RunSpec / run(spec) surface against the JAX package's:
-equal ``to_dict`` output and round trips, the same errors, the fleet
-targets refused until they are copied, and the live engine's mesh
-branches (the model over measured stage times, the summary keys) on the
-CPU."""
+equal ``to_dict`` output and round trips, the same errors, equal traces
+from the fleet targets, and the live engine's mesh branches (the model
+over measured stage times, the summary keys) on the CPU."""
 import dataclasses
 import json
 
@@ -33,6 +32,8 @@ from repro_torch.core import (  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.schedulers import OraclePolicy  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
+from test_torch_fleet import _diff as _fleet_diff  # noqa: E402
+from test_torch_workloads import JAX, PORT, FakeExecutor  # noqa: E402
 
 NUM_EPS = 4
 
@@ -138,30 +139,93 @@ def test_run_type_errors_equal_jax(db):
             pkg.RunSpec(db=db, scheduler="odin")
 
 
+class _FleetEngine:
+    """A stand-in for a live engine in a fleet: its own runtime and a
+    deterministic executor (``FakeExecutor``) of the given package."""
+
+    def __init__(self, pkg, seed):
+        self.pkg, self.seed = pkg, seed
+        self.runtime = pkg.Runtime(pkg.policy("odin"), [3, 3, 3, 3])
+        self.scheduler = "odin"
+        self.executor = self             # on_recover's warm_buckets
+
+    def query_executor(self, queries, schedule, max_batch=1):
+        return FakeExecutor(self.pkg, self.runtime, np.full(40, 64),
+                            schedule, seed=self.seed, max_batch=max_batch)
+
+    def warm_buckets(self, seqs, max_batch):
+        pass
+
+    def estimated_peak_throughput(self):
+        return 250.0
+
+
+def _fleet_target_spec(case, pkg, run_api, db_):
+    """One spec per fleet target, admission, fault, retry and tier
+    branch, built from the given package."""
+    from repro.cluster import Replica as JaxReplica
+    from repro_torch.cluster import Replica
+    replica_cls = Replica if pkg is PORT else JaxReplica
+    poisson = dict(name="poisson", kwargs=dict(rate=0.05, seed=1))
+    return {
+        "db-cluster": run_api.RunSpec(
+            db=db_, num_queries=60, workload=poisson,
+            cluster=run_api.ClusterSpec(num_replicas=2,
+                                        router="odin_aware")),
+        "replicas": run_api.RunSpec(
+            replicas=[replica_cls(executor=e.query_executor([], lambda q:
+                                                            [1.0] * 4),
+                                  runtime=e.runtime)
+                      for e in (_FleetEngine(pkg, 0), _FleetEngine(pkg, 1))],
+            num_queries=30, workload=dict(name="poisson",
+                                          kwargs=dict(rate=400.0, seed=1)),
+            cluster=run_api.ClusterSpec(router="least_outstanding")),
+        "engines": run_api.RunSpec(
+            engines=[_FleetEngine(pkg, 0), _FleetEngine(pkg, 1)],
+            queries=list(range(30)), schedule=lambda q: [1.0] * 4,
+            workload=dict(name="poisson", kwargs=dict(rate=400.0, seed=1)),
+            faults=run_api.FaultsSpec(plan="flaky@0+100:p=0.3"),
+            retries=run_api.RetriesSpec(policy=2),
+            cluster=run_api.ClusterSpec(num_replicas=2,
+                                        router="round_robin")),
+        "faults": run_api.RunSpec(db=db_, num_queries=10,
+                                  faults=run_api.FaultsSpec(
+                                      plan="crash@1+2")),
+        "retries": run_api.RunSpec(db=db_, num_queries=10,
+                                   faults=run_api.FaultsSpec(
+                                       plan="flaky@0+10:p=0.5"),
+                                   retries=run_api.RetriesSpec(policy=2)),
+        "tiers": run_api.RunSpec(db=db_, num_queries=10,
+                                 tiers=run_api.TiersSpec(
+                                     spec="interactive")),
+        "admission": run_api.RunSpec(db=db_, num_queries=60,
+                                     workload=poisson,
+                                     admission=run_api.AdmissionSpec(
+                                         name="queue_cap",
+                                         kwargs={"cap": 4})),
+    }[case]
+
+
 @pytest.mark.parametrize("case", [
     "db-cluster", "replicas", "engines", "faults", "retries", "tiers",
     "admission"])
 def test_fleet_targets_wait_for_item_6f(case, db):
-    """What needs the fleet, admission, fault and QoS layers raises
-    NotImplementedError naming ROADMAP item 6f."""
-    spec = {
-        "db-cluster": api.RunSpec(db=db, num_queries=10,
-                                  cluster=api.ClusterSpec(num_replicas=2)),
-        "replicas": api.RunSpec(replicas=[_Dummy()], num_queries=10),
-        "engines": api.RunSpec(engines=[_Dummy()], queries=[]),
-        "faults": api.RunSpec(db=db, num_queries=10,
-                              faults=api.FaultsSpec(plan="crash@1+2")),
-        "retries": api.RunSpec(db=db, num_queries=10,
-                               retries=api.RetriesSpec(policy=2)),
-        "tiers": api.RunSpec(db=db, num_queries=10,
-                             tiers=api.TiersSpec(spec="interactive")),
-        "admission": api.RunSpec(db=db, num_queries=10,
-                                 admission=api.AdmissionSpec(
-                                     name="queue_cap",
-                                     kwargs={"cap": 4})),
-    }[case]
-    with pytest.raises(NotImplementedError, match="item 6f"):
-        api.run(spec)
+    """The fleet targets and the admission, fault, retry and tier
+    branches (which once raised NotImplementedError while the fleet
+    layers were not copied) now run, and their traces equal the JAX
+    package's for the same spec."""
+    a = api.run(_fleet_target_spec(case, PORT, api, db))
+    b = jax_api.run(_fleet_target_spec(case, JAX, jax_api,
+                                       jax_db("vgg16", seed=0)))
+    assert type(a).__module__.startswith("repro_torch.")
+    assert type(b).__module__.startswith("repro.")
+    d = _fleet_diff(a, b) or _fleet_diff(a.summary(), b.summary())
+    assert d is None, d
+    s = a.summary()
+    if case in ("faults", "retries", "engines"):
+        assert s["num_failed"] + s["num_retried"] > 0
+    if case == "admission":
+        assert s["num_shed"] > 0
 
 
 @pytest.mark.parametrize("sched", ["odin", "hybrid", "oracle"])

@@ -155,7 +155,8 @@ def test_kernel_matches_plain_version_at_batched_main_shapes(card, case):
 def test_kernel_matches_plain_version_at_family_shapes(card, case):
     """The MoE and embedding-input families' attention at their published
     widths (MHA, D 80 bidirectional, group 7 at S 2944, a window that
-    bites), on the tensor-core kernel, at the main limits."""
+    bites) and a mixed fleet's small pool (qwen2-0.5b, group 7 at D 64,
+    S 1024), on the tensor-core kernel, at the main limits."""
     B, Hq, Hkv, S, D, causal, window, dtype = case
     q, k, v = _inputs([(B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D)], dtype,
                       seed=10)

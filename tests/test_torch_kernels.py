@@ -663,6 +663,7 @@ FAMILY_SHAPES = {
     "llava-next-34b": (56, 8, 128, True, None),
     "mixtral-8x22b": (48, 8, 128, True, 4096),
     "jamba-1.5-large-398b": (64, 8, 128, True, None),
+    "qwen2-0.5b": (14, 2, 64, True, None),
 }
 
 

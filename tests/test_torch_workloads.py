@@ -559,19 +559,38 @@ def test_run_loop_covers_joins_and_rebalances(workload):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(admission="slo_shed", admission_kwargs=dict(slo=1.0)),
-    dict(admission="queue_cap"),
+    dict(admission="slo_shed", admission_kwargs=dict(slo=0.01)),
+    dict(admission="queue_cap", admission_kwargs=dict(cap=2)),
     dict(faults="crash@5+3"),
-    dict(retries=2),
+    dict(faults="flaky@0+40:p=0.3", retries=2),
     dict(tiers="interactive,best_effort"),
 ], ids=["admission", "queue_cap", "faults", "retries", "tiers"])
 def test_deferred_branches_raise(kwargs):
-    runtime = RebalanceRuntime(PORT.policy("odin"), [3, 3, 3, 3])
-    fx = FakeExecutor(PORT, runtime, np.full(8, 64), _loop_schedule)
-    with pytest.raises(NotImplementedError, match="6f"):
-        port_runner._run_pipeline_impl(fx, runtime, 8, **kwargs)
-    with pytest.raises(NotImplementedError, match="6f"):
-        port_wl.run_pipeline(fx, runtime, 8, **kwargs)
+    """The admission, fault, retry and tier branches of the run loop
+    (which once raised NotImplementedError while the control plane was
+    not copied) give traces equal to the JAX loop's, through both
+    ``_run_pipeline_impl`` and ``run_pipeline``."""
+    for entry in ("_run_pipeline_impl", "run_pipeline"):
+        traces = []
+        for pkg in (PORT, JAX):
+            runtime = pkg.Runtime(pkg.policy("odin"), [3, 3, 3, 3])
+            fx = FakeExecutor(pkg, runtime, np.full(40, 64), _loop_schedule)
+            run = (getattr(pkg.runner, entry) if entry.startswith("_")
+                   else pkg.wl.run_pipeline)
+            traces.append(run(fx, runtime, 40, workload="poisson",
+                              workload_kwargs=dict(rate=500.0, seed=1),
+                              **kwargs))
+        a, b = traces
+        fa, fb = _trace_fields(a), _trace_fields(b)
+        assert list(fa) == list(fb)
+        bad = [k for k in fa if not _equal(fa[k], fb[k])]
+        assert not bad, {k: (fa[k], fb[k]) for k in bad[:3]}
+        _assert_summaries_equal(a.summary(), b.summary())
+        s = a.summary()
+        if "admission" in kwargs:
+            assert s["num_shed"] > 0
+        if "faults" in kwargs:
+            assert s["num_failed"] + s["num_retried"] > 0
 
 
 def test_none_admission_is_the_disabled_control_plane():
