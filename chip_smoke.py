@@ -3,17 +3,18 @@ against their plain versions.
 
     python3 chip_smoke.py
 
-Phases, in the order they run (11 and 12 run between 9 and 10); any
+Phases, in the order they run (11, 12 and 13 run between 9 and 10); any
 failure raises and the script exits nonzero.  Each phase prints its wall
 time.
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions.
    There must be a CUDA device.
-2. build: the port's kernels K1 (its bf16 tensor-core kernel and its fp32
-   CUDA-core kernel), K2 and K3 from their sources in this checkout, one
-   ``nvcc`` per source, all started together; ``ptxas``' registers, spills
-   and the dynamic shared memory of K1's tensor-core kernel and of K3's
-   three launches (with their grids at mamba2-370m's shape).
+2. build: the port's kernels K1 (its bf16 tensor-core kernel, its fp32
+   CUDA-core kernel and its fp32 backward), K2 and K3 from their sources in
+   this checkout, one ``nvcc`` per source, all started together;
+   ``ptxas``' registers, spills and the dynamic shared memory of K1's
+   tensor-core kernel, of its backward's launches and of K3's three
+   launches (with their grids at mamba2-370m's shape).
 3. K1 (flash attention) against its plain version on the card, at the
    shapes and tolerances of ``repro_torch.kernels.cases``: the JAX
    package's FLASH_CASES shapes in fp32 (TF32 off, tolerance 2e-5; the
@@ -189,7 +190,35 @@ time.
    blocks times the forwards each executor ran), and the first launch of
    each distinct shape is held against the plain version on its own
    inputs at the main limits.
-13. the card line again, one ``{"kernels": [...]}`` line, and last
+13. training (run after phase 12, with phase 12's models freed first),
+   each model's peak device memory printed:
+   a. K1's backward (``csrc/flash_attention_bwd.cu``) against the plain
+      backward (autograd through the plain attention, TF32 off) on
+      BACKWARD_CASES: dq, dk and dv each within BACKWARD_LIMIT of max |ref|;
+      the fp32 forward's LSE entry point bit-equal to its plain entry
+      point.  Both timed at the training shape (8, 14, 2, 256, 64) and at
+      (1, 14, 2, 1024, 64) beside the plain version, autograd's backward of
+      fp32 ``scaled_dot_product_attention`` (a yardstick the port never
+      calls) and the fp32 bound;
+   b. full-width qwen2-0.5b (24 blocks, 0.63 B parameters) in fp32 with
+      remat per block, batches of ``SyntheticLM(vocab, 256, 8, seed=0)``:
+      step 0's loss and every gradient leaf with K1 against the same with
+      ``impl="ref"``; then ``train`` for 30 steps (every loss finite, the
+      mean of the last 5 below step 0's), K1 counting exactly 2 x 24 x 30
+      fp32 forward launches, 24 x 30 LSE launches and 24 x 30 backward
+      launches and no bf16 one; the checkpoint after step 30 loads back
+      bit-equal and one more step from it equals the step without the
+      reload; the median step time, tokens/s, TFLOP/s from
+      ``launch/analytic.py``, the card's busy share over one step and K1's
+      forward and backward shares (``torch.profiler``);
+   c. one train step of deepseek-moe-16b, mixtral-8x22b (window 64),
+      hubert-xlarge (bidirectional, embeddings) and llava-next-34b
+      (embeddings) at smoke width, K1 against the plain attention at b's
+      limits; mamba2-370m must raise ``NotImplementedError`` (K3 has no
+      backward yet);
+   d. ``python -m repro_torch.launch.train --arch qwen2-0.5b --full
+      --steps 20``.
+14. the card line again, one ``{"kernels": [...]}`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM data-sheet peaks: 989 TFLOP/s dense bf16 on the
@@ -201,7 +230,9 @@ import ctypes
 import dataclasses
 import gc
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -219,8 +250,13 @@ from repro_torch.configs.llava_next_34b import NUM_PATCH_TOKENS  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import decode_attention as k2_lib  # noqa: E402
+from repro_torch.kernels import flash_attention as k1_lib  # noqa: E402
 from repro_torch.kernels import ssd_scan as k3_lib  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
+    BACKWARD_CASES,
+    BACKWARD_LIMIT,
+    BACKWARD_LONG_CASE,
+    BACKWARD_TRAIN_CASE,
     BATCHED_MAIN_CASES,
     DECODE_CASES,
     DECODE_CORNER_CASES,
@@ -253,6 +289,7 @@ from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     decode_attention_ref,
+    flash_attention_bwd_ref,
     flash_attention_ref,
     ssd_scan_ref,
 )
@@ -287,6 +324,24 @@ from repro_torch.schedulers.runtime import (  # noqa: E402
     RebalanceRuntime,
     RuntimeStep,
 )
+from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.launch.analytic import analytic_cost  # noqa: E402
+from repro_torch.training import (  # noqa: E402
+    AdamWConfig,
+    init_adamw,
+    make_train_step,
+    train,
+)
+from repro_torch.training.checkpoint import (  # noqa: E402
+    flatten,
+    load_checkpoint,
+    save_checkpoint,
+)
+from repro_torch.training.data import SyntheticEmbeds, SyntheticLM  # noqa: E402
+from repro_torch.training.train_loop import (  # noqa: E402
+    loss_and_grads,
+    to_batch,
+)
 from repro_torch.workloads import (  # noqa: E402
     QueryRecord,
     make_lengths,
@@ -298,8 +353,8 @@ from repro_torch.workloads import (  # noqa: E402
 PEAK_BF16_FLOPS = 989e12      # H100 SXM, dense bf16 tensor cores
 PEAK_FP32_FLOPS = 67e12       # H100 SXM, fp32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12      # H100 SXM, HBM3
-KERNELS = ("flash_attention_bf16", "flash_attention", "decode_attention",
-           "ssd_scan")
+KERNELS = ("flash_attention_bf16", "flash_attention", "flash_attention_bwd",
+           "decode_attention", "ssd_scan")
 # A clean query's block time with the first designs of K1 (bf16 on the fp32
 # CUDA cores) and K3 (one block per head), chip_smoke.py on an NVIDIA H100
 # 80GB HBM3 at 700 W, printed beside this run's.
@@ -412,6 +467,20 @@ FAULT_FLAKY_P, FAULT_RETRIES, FAULT_HEDGE_SERVICES = 0.1, 3, 2.0
 FAULT_COOLDOWN, FAULT_MIN_AVAILABILITY = 0.4, 0.99
 ENGINE_FAULTS, ENGINE_RETRIES, ENGINE_FAULT_QUERIES = \
     "crash@5+3,flaky@0+1000:p=0.2", 2, 24
+
+# Phase 13: training.  Full-width TRAIN_ARCH in fp32 with remat, batches of
+# TRAIN_BATCH x TRAIN_SEQ tokens (the training CLI's defaults), TRAIN_STEPS
+# steps of AdamW at TRAIN_OPT; step 0's loss with K1 against the plain
+# attention to TRAIN_LOSS_RTOL, each gradient leaf's rms error to
+# TRAIN_GRAD_RMS_LIMIT of its rms (set before the first run on the card).
+# The families train one step at their smoke width over FAMILY_TRAIN_SEQ
+# tokens (past mixtral's smoke window of 64); the CLI runs TRAIN_CLI_STEPS.
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = "qwen2-0.5b", 256, 8, 30
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=3, total_steps=30)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RMS_LIMIT = 1e-5, 1e-4
+FAMILY_TRAIN_ARCHS = ("deepseek-moe-16b", "mixtral-8x22b", "hubert-xlarge",
+                      "llava-next-34b")
+FAMILY_TRAIN_SEQ, TRAIN_CLI_STEPS = 128, 20
 
 
 def log(msg: str) -> None:
@@ -1119,8 +1188,10 @@ def phase_qwen(cfg, params, kernel_ms: float) -> dict:
         f"one block {block_ms:.3f} ms, of which attention {kernel_ms:.3f}"
         f" ms ({100 * kernel_ms / block_ms:.0f}%)")
     served = serve_under_odin(cfg, params, flash_attention, "K1", kernel_ms)
+    # Serving launches no training kernel: no LSE forward, no backward.
     want = {"tensor_core_launches": cfg.num_blocks * NUM_QUERIES,
-            "cuda_core_launches": 0}
+            "cuda_core_launches": 0, "lse_launches": 0,
+            "backward_launches": 0}
     if served["counts"] != want:
         raise AssertionError(f"K1 routes while serving: {served['counts']}, "
                              f"expected {want}")
@@ -2050,7 +2121,8 @@ def phase_deepseek(k1_ms: float) -> dict:
                              f"{ratio:.3e}")
     served = serve_under_odin(cfg, params, flash_attention, "K1", k1_ms)
     want = {"tensor_core_launches": cfg.num_blocks * NUM_QUERIES,
-            "cuda_core_launches": 0}
+            "cuda_core_launches": 0, "lse_launches": 0,
+            "backward_launches": 0}
     if served["counts"] != want:
         raise AssertionError(f"K1 routes while serving: {served['counts']}")
     burst_rows_alone(cfg, params, list(toks[:, None]))
@@ -2984,6 +3056,338 @@ def phase_fleet(qcfg, qparams, scfg, sparams) -> dict:
                 admission=admission, qos=qos, faults=faults)
 
 
+# -- phase 13: training -------------------------------------------------------
+
+
+def bwd_work(B, Hq, Hkv, S, D, causal, window) -> tuple:
+    """K1's backward: (operations it needs, operations it executes, bytes).
+    It needs five products over the kept (query, key) pairs (S, dP, dV, dK,
+    dQ); it executes seven over whole 64 x 32 tiles (the dQ launch
+    recomputes S and dP).  Bytes: q, k, v, o, dO and the fp32 lse read
+    once, dq, dk and dv written once."""
+    pairs = attention_pairs(S, causal, window)      # causal or no window
+    needed = 5 * 2 * B * Hq * pairs * D
+    BQ, BK = 64, 32
+    nq, nk = -(-S // BQ), -(-S // BK)
+    kv_tiles = 0                       # (key tile, query tile) pairs, launch 2
+    for kt in range(nk):
+        k_last = min(kt * BK + BK, S) - 1
+        qb = kt * BK // BQ if causal else 0
+        qe = min(nq, (k_last + window - 1) // BQ + 1) if window else nq
+        kv_tiles += max(qe - qb, 0)
+    q_tiles = 0                        # (query tile, key tile) pairs, launch 3
+    for qt in range(nq):
+        q0 = qt * BQ
+        ke = (min(q0 + BQ, S) - 1) // BK + 1 if causal else nk
+        kb = max(q0 - window + 1, 0) // BK if window else 0
+        q_tiles += ke - kb
+    executed = 2 * BQ * BK * D * B * Hq * (4 * kv_tiles + 3 * q_tiles)
+    nbytes = 4 * B * S * D * (4 * Hq + 4 * Hkv) + 4 * B * Hq * S
+    return needed, executed, nbytes
+
+
+def phase_backward_check() -> dict:
+    """13a: K1's backward kernel against the plain backward on
+    BACKWARD_CASES, the LSE entry point against the plain entry point; both
+    timed at the training shape and at S 1024."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    worst = dict(bwd=0.0, fwd=0.0)
+    for case in BACKWARD_CASES:
+        B, Hq, Hkv, S, D, causal, window, dtype = case
+        q, k, v, do = (randn(gen, s, dtype) for s in (
+            (B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D), (B, Hq, S, D)))
+        o, lse = k1_lib.forward_with_lse(q, k, v, causal=causal,
+                                         window=window)
+        o_plain = flash_attention(q, k, v, causal=causal, window=window)
+        got = k1_lib.backward(q, k, v, o, lse, do, causal=causal,
+                              window=window)
+        want = flash_attention_bwd_ref(q, k, v, do, causal=causal,
+                                       window=window)
+        torch.cuda.synchronize()
+        if not torch.equal(o, o_plain):
+            raise AssertionError(f"K1 {case}: the LSE entry point's output "
+                                 f"differs from the plain entry point's")
+        fwd = compare(o, flash_attention_ref(q, k, v, causal=causal,
+                                             window=window),
+                      tolerance(dtype), f"K1 fp32 forward {case}")
+        ratios = [max_ratio(g, w) for g, w in zip(got, want)]
+        log(f"  K1 backward {case}: max|err|/max|ref| dq {ratios[0]:.3e} dk "
+            f"{ratios[1]:.3e} dv {ratios[2]:.3e} (limit {BACKWARD_LIMIT}); "
+            f"LSE forward bit-equal to the plain entry point")
+        if not (max(ratios) <= BACKWARD_LIMIT
+                and all(bool(torch.isfinite(g).all()) for g in got)):
+            raise AssertionError(f"K1 backward {case}: {ratios} (limit "
+                                 f"{BACKWARD_LIMIT})")
+        worst["bwd"] = max([worst["bwd"]] + [float((g - w).abs().max())
+                                             for g, w in zip(got, want)])
+        worst["fwd"] = max(worst["fwd"], fwd["max_abs_err"])
+
+    timed = {}
+    for case in (BACKWARD_TRAIN_CASE, BACKWARD_LONG_CASE):
+        B, Hq, Hkv, S, D, causal, window, dtype = case
+        q, k, v, do = (randn(gen, s, dtype) for s in (
+            (B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D), (B, Hq, S, D)))
+        o, lse = k1_lib.forward_with_lse(q, k, v, causal=causal,
+                                         window=window)
+        bwd_ms = time_ms(lambda: k1_lib.backward(q, k, v, o, lse, do,
+                                                 causal=causal,
+                                                 window=window))
+        plain_bwd_ms = time_ms(lambda: flash_attention_bwd_ref(
+            q, k, v, do, causal=causal, window=window), reps=10)
+        # The yardstick: autograd's backward through sdpa's fp32 forward.
+        lq, lk, lv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        lo = torch.nn.functional.scaled_dot_product_attention(
+            lq, lk, lv, is_causal=causal, enable_gqa=True)
+        library_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            lo, (lq, lk, lv), do, retain_graph=True))
+        fwd_ms = time_ms(lambda: k1_lib.forward_with_lse(
+            q, k, v, causal=causal, window=window))
+        plain_fwd_ms = time_ms(lambda: flash_attention_ref(
+            q, k, v, causal=causal, window=window), reps=10)
+        library_fwd_ms = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True))
+        needed, executed, nbytes = bwd_work(*case[:7])
+        bwd_bound_ms, bwd_by = bound(needed, nbytes, PEAK_FP32_FLOPS)
+        fwd_bound_ms, fwd_by = bound(
+            4 * B * Hq * attention_pairs(S, causal) * D,
+            (2 * Hq + 2 * Hkv) * B * S * D * 4 + 4 * B * Hq * S,
+            PEAK_FP32_FLOPS)
+        timed[case] = dict(
+            bwd=dict(ms=bwd_ms, plain_ms=plain_bwd_ms,
+                     library_ms=library_bwd_ms, bound_ms=bwd_bound_ms,
+                     bound_by=bwd_by),
+            fwd=dict(ms=fwd_ms, plain_ms=plain_fwd_ms,
+                     library_ms=library_fwd_ms, bound_ms=fwd_bound_ms,
+                     bound_by=fwd_by))
+        log(f"  K1 backward {case}: kernel_ms {bwd_ms:.4f} (4 launches)  "
+            f"plain_ms {plain_bwd_ms:.4f} (autograd through the plain "
+            f"attention)  library_ms {library_bwd_ms:.4f} (autograd's "
+            f"backward of fp32 scaled_dot_product_attention)  bound_ms "
+            f"{bwd_bound_ms:.4f} ({bwd_by}: {needed / 1e9:.3f} GFLOP needed "
+            f"(5 products over the kept pairs) at the 67 TFLOP/s fp32 peak; "
+            f"the kernel executes {executed / 1e9:.3f} GFLOP (7 products over "
+            f"whole tiles), {executed / bwd_ms / 1e9:.1f} TFLOP/s; "
+            f"{nbytes / 1e6:.1f} MB)")
+        log(f"  K1 fp32 forward with LSE {case}: kernel_ms {fwd_ms:.4f}  "
+            f"plain_ms {plain_fwd_ms:.4f}  library_ms {library_fwd_ms:.4f} "
+            f"(fp32 scaled_dot_product_attention)  bound_ms "
+            f"{fwd_bound_ms:.4f} ({fwd_by}, fp32 peak)")
+    return dict(worst=worst, timed=timed)
+
+
+def grads_against_ref(model, params, batch, what: str) -> tuple:
+    """Step 0's loss and every gradient leaf with the kernels against the
+    same with ``impl="ref"`` on the card: the loss to TRAIN_LOSS_RTOL, each
+    leaf's rms error to TRAIN_GRAD_RMS_LIMIT of its rms.  Returns (loss,
+    worst leaf ratio)."""
+    (loss, _), grads = loss_and_grads(model, params, batch)
+    (loss_ref, _), grads_ref = loss_and_grads(model, params, batch,
+                                              impl="ref")
+    torch.cuda.synchronize()
+    rel = abs(float(loss) - float(loss_ref)) / abs(float(loss_ref))
+    worst, worst_key = 0.0, None
+    for (key, g), w in zip(flatten(grads).items(),
+                           flatten(grads_ref).values()):
+        err, ref = rms(g - w), rms(w)
+        ratio = err / ref if ref > 0 else (0.0 if err == 0 else float("inf"))
+        if ratio > worst:
+            worst, worst_key = ratio, key
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{what}: non-finite gradient at {key}")
+    log(f"  {what}: loss {float(loss):.6f} with K1, {float(loss_ref):.6f} "
+        f"with the plain attention (rel {rel:.2e}, limit {TRAIN_LOSS_RTOL});"
+        f" worst gradient leaf rms err / rms {worst:.2e} at {worst_key} "
+        f"(limit {TRAIN_GRAD_RMS_LIMIT})")
+    if not (rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_RMS_LIMIT):
+        raise AssertionError(f"{what}: K1's gradients disagree with the "
+                             f"plain attention's")
+    return float(loss), worst
+
+
+def k1_kernel_ms(prof) -> dict:
+    """Device ms of K1's forward and backward kernels, of the matrix
+    products (cuBLAS kernels, "gemm" in their names) and of all kernels in
+    a ``torch.profiler`` run."""
+    out = dict(fwd=0.0, bwd=0.0, gemm=0.0, total=0.0)
+    for ev in prof.key_averages():
+        t = (getattr(ev, "device_time_total", None)
+             or getattr(ev, "cuda_time_total", 0)) / 1e3
+        out["total"] += t
+        if "flash_fwd" in ev.key:
+            out["fwd"] += t
+        elif any(k in ev.key for k in ("bwd_delta", "bwd_dkv", "bwd_dq")):
+            out["bwd"] += t
+        elif "gemm" in ev.key.lower():
+            out["gemm"] += t
+    return out
+
+
+def phase_train() -> dict:
+    """13b: full-width qwen2-0.5b in fp32 with remat: step 0's gradients
+    with K1 against the plain attention, TRAIN_STEPS steps of ``train``,
+    the checkpoint round trip, the step's time and where it goes."""
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, remat=True)
+    params = model.init_params(seed=0, dtype=torch.float32, device="cuda")
+    log(f"  {cfg.name}: {cfg.param_count() / 1e9:.3f} B parameters, "
+        f"{cfg.num_blocks} blocks, d_model {cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads}, D {cfg.head_dim}, vocab "
+        f"{cfg.vocab_size}, fp32, remat per block; batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens (SyntheticLM, seed 0)")
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    dev = torch.device("cuda")
+    grads_against_ref(model, params, to_batch(data.batch_at(0), dev),
+                      "step 0, full width")
+
+    opt = AdamWConfig(**TRAIN_OPT)
+    reset_counts(flash_attention)
+    out = train(cfg, opt, iter(data), TRAIN_STEPS, device="cuda",
+                params=params, log_every=1, log_fn=lambda *_: None)
+    counts = {name: n for name, n in vars(flash_attention).items()
+              if name.endswith("launches")}
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    steps_s = np.diff([0.0] + [h["wall_s"] for h in hist])
+    log(f"  {TRAIN_STEPS} steps: losses {[round(x, 4) for x in losses]}")
+    log(f"  K1 launches over the {TRAIN_STEPS} steps: {counts}")
+    n = cfg.num_blocks * TRAIN_STEPS
+    want = dict(launches=2 * n, cuda_core_launches=2 * n, lse_launches=n,
+                backward_launches=n, tensor_core_launches=0)
+    if counts != want:
+        raise AssertionError(f"K1 launches in training: {counts}, expected "
+                             f"{want}")
+    if not (all(np.isfinite(losses))
+            and np.mean(losses[-5:]) < losses[0]):
+        raise AssertionError(f"training did not lower the loss: {losses}")
+
+    # The checkpoint after TRAIN_STEPS updates loads back bit-equal, and one
+    # more step from it equals the step taken without the reload.
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    state = {"params": out["params"], "opt": out["opt_state"]}
+    t0 = time.perf_counter()
+    save_checkpoint(str(ckpt_dir), state, TRAIN_STEPS)
+    t1 = time.perf_counter()
+    loaded = load_checkpoint(str(ckpt_dir), state)
+    torch.cuda.synchronize()
+    t_save, t_load = t1 - t0, time.perf_counter() - t1
+    ckpt_bytes = sum(p.stat().st_size for p in ckpt_dir.glob("*.npz"))
+    if not all(torch.equal(a, b) for a, b in zip(flatten(state).values(),
+                                                 flatten(loaded).values())):
+        raise AssertionError("the checkpoint did not load back bit-equal")
+    step_fn = make_train_step(cfg, opt)
+    batch = to_batch(data.batch_at(TRAIN_STEPS), dev)
+    p_a, _, m_a = step_fn(state["params"], state["opt"], batch)
+    p_a = list(flatten(p_a).values())
+    p_b, _, m_b = step_fn(loaded["params"], loaded["opt"], batch)
+    same = all(torch.equal(a, b) for a, b in zip(p_a,
+                                                 flatten(p_b).values()))
+    log(f"  checkpoint at step {TRAIN_STEPS}: {ckpt_bytes / 2**30:.2f} GiB, "
+        f"saved in {t_save:.1f} s and loaded in {t_load:.1f} s, bit-equal;"
+        f" one more step "
+        f"from it: loss {float(m_b['loss']):.6f}, params equal to the step "
+        f"without the reload: {same}")
+    if not same or float(m_a["loss"]) != float(m_b["loss"]):
+        raise AssertionError("a step from the reloaded checkpoint differs")
+    shutil.rmtree(ckpt_dir)
+    del p_a, p_b, loaded
+
+    # Where a step's time goes: the card's busy share and K1's shares.
+    from torch.profiler import ProfilerActivity, profile
+    p, s = state["params"], state["opt"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        p, s, _ = step_fn(p, s, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_ms = k1_kernel_ms(prof)
+    step_s = float(np.median(steps_s[1:]))
+    shape = InputShape("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    flops = analytic_cost(cfg, shape).totals("train", remat=True)["flops"]
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    log(f"  step time (host clock, synchronised, median of steps 1-"
+        f"{TRAIN_STEPS - 1}): {1e3 * step_s:.2f} ms (step 0 "
+        f"{1e3 * steps_s[0]:.2f} ms); {tokens / step_s:.0f} tokens/s; "
+        f"{flops / 1e12:.3f} TFLOP a step (launch/analytic.py, train, "
+        f"remat) = {flops / step_s / 1e12:.2f} TFLOP/s achieved")
+    log(f"  one profiled step: {1e3 * wall:.2f} ms on the host clock, the "
+        f"card busy {dev_ms['total']:.2f} ms ({100 * dev_ms['total'] / (1e3 * wall):.1f}"
+        f"%); K1 forward {dev_ms['fwd']:.2f} ms ({100 * dev_ms['fwd'] / dev_ms['total']:.1f}"
+        f"% of busy), K1 backward {dev_ms['bwd']:.2f} ms "
+        f"({100 * dev_ms['bwd'] / dev_ms['total']:.1f}%), matrix products "
+        f"{dev_ms['gemm']:.2f} ms ({100 * dev_ms['gemm'] / dev_ms['total']:.1f}"
+        f"%)")
+    log_memory(f"{cfg.name} training")
+    return dict(counts=counts, step_s=step_s, losses=losses,
+                busy=dev_ms["total"] / (1e3 * wall))
+
+
+def phase_train_families() -> dict:
+    """13c: one train step of each family at its smoke width: K1 against
+    the plain attention at 13b's limits, then a step of ``make_train_step``;
+    mamba2-370m must raise on the card (K3 has no backward yet)."""
+    dev = torch.device("cuda")
+    for arch in FAMILY_TRAIN_ARCHS:
+        cfg = get_smoke_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        params = Model(cfg).init_params(seed=0, device="cuda")
+        data = (SyntheticEmbeds(cfg.d_model, cfg.vocab_size, FAMILY_TRAIN_SEQ,
+                                2) if cfg.embedding_inputs
+                else SyntheticLM(cfg.vocab_size, FAMILY_TRAIN_SEQ, 2))
+        batch = to_batch(data.batch_at(0), dev)
+        reset_counts(flash_attention)
+        grads_against_ref(Model(cfg, remat=True), params, batch,
+                          f"{arch} (smoke width, S {FAMILY_TRAIN_SEQ}, "
+                          f"causal {cfg.causal}, window {cfg.sliding_window})")
+        step = make_train_step(cfg, AdamWConfig(warmup_steps=1))
+        _, state, m = step(params, init_adamw(params), batch)
+        if not (np.isfinite(float(m["loss"])) and flash_attention.
+                backward_launches == 2 * cfg.num_blocks):
+            raise AssertionError(f"{arch}: train step loss {float(m['loss'])},"
+                                 f" K1 backward launches "
+                                 f"{flash_attention.backward_launches}")
+        log(f"  {arch}: one train step, loss {float(m['loss']):.4f}, aux_loss"
+            f" {float(m['aux_loss']):.4f}, router_z {float(m['router_z']):.4f}"
+            f"; device memory peak "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    cfg = get_smoke_config("mamba2-370m")
+    params = Model(cfg).init_params(seed=0, device="cuda")
+    batch = to_batch(SyntheticLM(cfg.vocab_size, FAMILY_TRAIN_SEQ, 2)
+                     .batch_at(0), dev)
+    try:
+        loss_and_grads(Model(cfg, remat=True), params, batch)
+    except NotImplementedError as e:
+        log(f"  mamba2-370m raises on the card, as it must: {e}")
+    else:
+        raise AssertionError("mamba2-370m trained on the card without K3's "
+                             "backward")
+    return {}
+
+
+def phase_train_cli() -> dict:
+    """13d: the training CLI once at full width."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           TRAIN_ARCH, "--full", "--steps", str(TRAIN_CLI_STEPS)]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=600, env=dict(os.environ,
+                                             PYTHONPATH=str(ROOT / "src")))
+    wall = time.perf_counter() - t0
+    lines = r.stdout.strip().splitlines()
+    log(f"  {' '.join(cmd[1:])}: exit {r.returncode} in {wall:.1f} s")
+    for line in lines:
+        log(f"    {line}")
+    if r.returncode != 0:
+        raise AssertionError(f"the training CLI failed:\n{r.stderr[-3000:]}")
+    last = float(lines[-1].split("loss=")[1].split()[0])
+    if not (lines[-1].startswith(f"step {TRAIN_CLI_STEPS - 1:5d}")
+            and np.isfinite(last)):
+        raise AssertionError(f"the training CLI's last line: {lines[-1]}")
+    return dict(wall=wall)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
@@ -3030,8 +3434,19 @@ def main() -> None:
         for name, line in ptxas_lines(logs["decode_attention"] or ""):
             if "bfloat16" in name:
                 log(f"  K2 decode_fwd (bf16): {line}")
+        bwd_lib = build.load("flash_attention_bwd")
+        smem = bwd_lib.odin_flash_attention_bwd_smem_bytes
+        smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_int
+        D = BACKWARD_TRAIN_CASE[4]
+        for name, line in ptxas_lines(logs["flash_attention_bwd"] or ""):
+            kernel = re.search(r"bwd_(?:dkv_sum|dkv|dq|delta)", name).group()
+            which = {"bwd_dkv": 0, "bwd_dq": 1}.get(kernel)
+            log(f"  K1 backward {kernel}: {line}" + (
+                "" if which is None else
+                f", {smem(which, D)} B dynamic shared memory at D {D}"))
 
-    phase("phase 2: build K1 (bf16 and fp32), K2, K3", build_all)
+    phase("phase 2: build K1 (bf16, fp32 and its backward), K2, K3",
+          build_all)
     main_k1 = phase("phase 3: K1 against its plain version",
                     phase_kernel_check)
     k3 = phase("phase 4: K3 against its plain version", phase_ssd_check)
@@ -3067,11 +3482,20 @@ def main() -> None:
         f"+ {measured['launches']} (11d)")
     del hybrid
 
-    # Phase 10 loads each model alone: the earlier phases' go first.
+    # Phases 13 and 10 load each model alone: the earlier phases' go first.
     del qparams, mparams
     free_memory()
-    log(f"  freed qwen3-4b and mamba2-370m: device memory "
+    log(f"  freed qwen3-4b, mamba2-370m and qwen2-0.5b: device memory "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    bwd = phase("phase 13a: K1's backward against its plain version",
+                phase_backward_check)
+    trained = phase("phase 13b: full-width qwen2-0.5b trains in fp32",
+                    phase_train)
+    free_memory()
+    phase("phase 13c: one train step of each family at smoke width",
+          phase_train_families)
+    free_memory()
+    phase("phase 13d: the training CLI at full width", phase_train_cli)
     family = phase("phase 10.0: the new paths' kernel shapes against their "
                    "plain versions", phase_family_kernels)
     free_memory()
@@ -3122,7 +3546,19 @@ def main() -> None:
          served_m["launches"] + batched["mamba2-370m"]["launches"]
          + jamba["k3"] + jamba["cached"]["k3"], k3),
     ]
-    sources = {"flash_attention": "flash_attention_bf16"}
+    # The training path: K1's fp32 forward (both entry points) and its
+    # backward, launched by phase 13b's steps.
+    k1_train = bwd["timed"][BACKWARD_TRAIN_CASE]
+    rows += [
+        ("flash_attention_fp32", "flash_attention.py:96",
+         trained["counts"]["cuda_core_launches"],
+         dict(k1_train["fwd"], max_abs_err=bwd["worst"]["fwd"])),
+        ("flash_attention_bwd", "flash_attention.py:96",
+         trained["counts"]["backward_launches"],
+         dict(k1_train["bwd"], max_abs_err=bwd["worst"]["bwd"])),
+    ]
+    sources = {"flash_attention": "flash_attention_bf16",
+               "flash_attention_fp32": "flash_attention"}
     kernels = [{
         "name": name,
         "route": "cuda",

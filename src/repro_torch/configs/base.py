@@ -139,6 +139,19 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Input shape (the JAX package's, for ``launch/analytic.py``)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # "train" | "prefill" | "decode"
+
+
+# ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
 

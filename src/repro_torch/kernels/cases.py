@@ -3,7 +3,7 @@ plain version, in the tests and on the card.
 
 K1 (flash attention): a case is ``(B, Hq, Hkv, S, D, causal, window,
 dtype)``; bf16 cases run on its tensor-core kernel, fp32 ones on its
-CUDA-core kernel.  K2 (decode attention): ``(B, Hq, Hkv, S, D, index,
+CUDA-core kernel, and BACKWARD_CASES on its fp32 backward kernel.  K2 (decode attention): ``(B, Hq, Hkv, S, D, index,
 window, dtype)``.  K3 (SSD scan): ``(b, S, H, P, N, chunk, dtype)``.
 Dtypes are named as torch dtypes.
 """
@@ -77,6 +77,28 @@ FAMILY_MAIN_CASES = [
 # NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py prints both readings).
 MAIN_TOLERANCE = dict(atol=1e-2, rtol=1e-2)
 MAIN_RMS_LIMIT = 2e-4
+
+
+# K1's backward (csrc/flash_attention_bwd.cu, fp32 only): every fp32 shape
+# of FLASH_CASES and RAGGED_CASES, qwen2-0.5b's training shape (the
+# training CLI's batch 8 of 256 tokens, group 7 at D 64), hubert-xlarge's
+# heads bidirectional over a length that is not a multiple of the tiles, a
+# window below one key tile at D 128, and qwen2-0.5b's heads over 1024
+# tokens.
+BACKWARD_TRAIN_CASE = (8, 14, 2, 256, 64, True, None, "float32")
+BACKWARD_LONG_CASE = (1, 14, 2, 1024, 64, True, None, "float32")
+BACKWARD_CASES = [c for c in FLASH_CASES + RAGGED_CASES
+                  if c[7] == "float32"] + [
+    BACKWARD_TRAIN_CASE,
+    (1, 16, 16, 512, 80, False, None, "float32"),
+    (1, 4, 2, 300, 128, True, 16, "float32"),
+    BACKWARD_LONG_CASE,
+]
+# Each of dq, dk and dv against the plain backward (autograd through
+# flash_attention_ref): max |got - want| / max |want| (``max_ratio``) at
+# most BACKWARD_LIMIT, K3's fp32 limit.  Both sides sum in fp32 in
+# different orders; set before the kernel's first run on the card.
+BACKWARD_LIMIT = 1e-4
 
 
 # K2: the JAX package's DECODE_CASES (tests/test_kernels.py).

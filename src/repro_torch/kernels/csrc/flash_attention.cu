@@ -28,6 +28,13 @@
 //
 // Grid: one block of 256 threads per (64-row query tile, query head, batch);
 // the KV axis is a loop inside the block, not a grid axis.
+//
+// A second entry point, odin_flash_attention_fwd_lse, is the same kernel
+// that also writes each row's log-sum-exp of its scaled scores,
+// m + log(max(l, 1e-30)), as fp32 [B, Hq, S]: the saved statistic from
+// which the backward (flash_attention_bwd.cu) rebuilds the probabilities.
+// The LSE write is a compile-time branch, so the first entry point's code
+// is what it was without it.
 
 #include <cuda_runtime.h>
 
@@ -78,10 +85,11 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
   }
 }
 
-template <typename T>
+template <typename T, bool LSE>
 __global__ void __launch_bounds__(NT)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int group, int S,
+          const T* __restrict__ v, T* __restrict__ o,
+          float* __restrict__ lse, int group, int S,
           int D, long long qsb, long long qsh, long long qss, long long ksb,
           long long ksh, long long kss, long long vsb, long long vsh,
           long long vss, long long osb, long long osh, long long oss,
@@ -248,16 +256,19 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) store(orow + c + e, acc[i][4 * jj + e] / l);
     }
   }
+  if (LSE && tid < BQ && q0 + tid < S)   // lse is [B, Hq, S], contiguous
+    lse[((long long)b * gridDim.y + h) * S + q0 + tid] =
+        sM[tid] + logf(fmaxf(sL[tid], 1e-30f));
 }
 
 int smem_bytes(int D) {
   return ((BQ + 2 * BK) * (D + 4) + BQ * LDP + 3 * BQ) * (int)sizeof(float);
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int S, int D, const long long* st, int causal,
-           int window, float scale, cudaStream_t stream) {
+template <typename T, bool LSE>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Hq, int Hkv, int S, int D, const long long* st,
+           int causal, int window, float scale, cudaStream_t stream) {
   if (D <= 0 || D > MAX_D || D % 4 != 0 || Hkv <= 0 || Hq % Hkv != 0 ||
       S <= 0 || B <= 0)
     return (int)cudaErrorInvalidValue;
@@ -265,12 +276,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   // Above 48 KB a kernel must opt in to dynamic shared memory.  The opt-in
   // is per device, so it is made on every call (it costs microseconds).
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd<T, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + BQ - 1) / BQ, Hq, B);
-  flash_fwd<T><<<grid, NT, smem, stream>>>(
+  flash_fwd<T, LSE><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq / Hkv, S, D, st[0],
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Hq / Hkv, S, D, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
       st[11], causal, window, scale);
   return (int)cudaGetLastError();
@@ -287,8 +298,21 @@ int odin_flash_attention_fwd(const void* q, const void* k, const void* v,
                              void* o, int B, int Hq, int Hkv, int S, int D,
                              const long long* strides, int causal,
                              int window, float scale, void* stream) {
-  return launch<float>(q, k, v, o, B, Hq, Hkv, S, D, strides, causal, window,
-                       scale, static_cast<cudaStream_t>(stream));
+  return launch<float, false>(q, k, v, o, nullptr, B, Hq, Hkv, S, D, strides,
+                              causal, window, scale,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// The same, and each row's log-sum-exp into lse, fp32 [B, Hq, S]
+// contiguous.
+int odin_flash_attention_fwd_lse(const void* q, const void* k, const void* v,
+                                 void* o, void* lse, int B, int Hq, int Hkv,
+                                 int S, int D, const long long* strides,
+                                 int causal, int window, float scale,
+                                 void* stream) {
+  return launch<float, true>(q, k, v, o, static_cast<float*>(lse), B, Hq,
+                             Hkv, S, D, strides, causal, window, scale,
+                             static_cast<cudaStream_t>(stream));
 }
 
 const char* odin_cuda_error_string(int code) {

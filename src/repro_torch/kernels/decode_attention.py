@@ -139,13 +139,18 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: [B, Hq, D]; k, v: [B, Hkv, S, D]; index: the newest valid slot
     -> [B, Hq, D].
 
-    CPU tensors run the plain version; CUDA tensors run the kernel.
+    CPU tensors run the plain version; CUDA tensors run the kernel, which
+    has no backward: an input that requires grad under grad mode raises.
     """
     _check_shapes(q, k, v, window)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, index, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"no decode_attention for device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("decode_attention is not differentiable on CUDA "
+                         "(decoding is never trained); run it under "
+                         "torch.no_grad() / torch.inference_mode()")
     return _launch(q, k, v, index, window)
 
 

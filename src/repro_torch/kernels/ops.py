@@ -3,7 +3,8 @@
 ``impl`` selection, mirroring the JAX package's ``kernels/ops.py``:
   * "cuda" -- the hand-written kernel; raises unless the tensors are on a
               CUDA device (never falls back)
-  * "ref"  -- the plain PyTorch version, on any device
+  * "ref"  -- the plain PyTorch version, on any device (differentiable
+              by autograd; the card's gradient checks use it)
   * "auto" -- the kernel for CUDA tensors, the plain version for CPU ones
 """
 from __future__ import annotations

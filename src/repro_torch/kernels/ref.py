@@ -39,6 +39,20 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, do: torch.Tensor, *,
+                            causal: bool = True,
+                            window: Optional[int] = None) -> tuple:
+    """The plain backward: (dq, dk, dv) of ``sum(flash_attention_ref(q, k,
+    v) * do)`` by ``torch.autograd.grad`` through the fully materialised
+    forward above.  Shapes as the forward's, ``do`` like q; each gradient
+    in its input's dtype."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_ref(*leaves, causal=causal, window=window)
+        return torch.autograd.grad(out, leaves, grad_outputs=do)
+
+
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          index, *, window: Optional[int] = None
                          ) -> torch.Tensor:

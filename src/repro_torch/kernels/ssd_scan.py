@@ -34,6 +34,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 64      # P
 MAX_STATE = 128        # N
 TILE = 64              # positions per row tile of the output launch
+BACKWARD_ITEM = "ROADMAP Queue 1 item 12 (K3's backward)"
 
 
 def _check_shapes(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -131,13 +132,22 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (y [b, S, H, P] in x's dtype, final state [b, H, P, N] in fp32).
 
     CPU tensors run the plain version (which has no chunks); CUDA tensors
-    run the kernel with chunks of ``min(chunk, S)`` positions.
+    run the kernel with chunks of ``min(chunk, S)`` positions.  The kernel
+    has no backward yet: a CUDA input that requires grad under grad mode
+    raises ``NotImplementedError`` (an output without ``grad_fn`` would
+    drop its gradient silently).
     """
     _check_shapes(x, dt, A, B, C, chunk)
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, B, C)
     if x.device.type != "cuda":
         raise ValueError(f"no ssd_scan for device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, dt, A, B, C)):
+        raise NotImplementedError(
+            f"ssd_scan has no backward kernel on CUDA yet ({BACKWARD_ITEM});"
+            f" run under torch.no_grad() / torch.inference_mode(), or train "
+            f"the Mamba2 families on the CPU")
     return _launch(x, dt, A, B, C, chunk)
 
 

@@ -8,6 +8,8 @@ tests take their weights from the JAX package through
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -102,3 +104,17 @@ def init_unembed(gen: torch.Generator, d_model: int, vocab: int,
 
 def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
     return x @ params["w"]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy in fp32: logits [..., V], labels [...]
+    (integer), optional mask [...] weighting each token's NLL."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - ll
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -1,23 +1,30 @@
 """Model assembly: embeddings + stacked blocks + head.
 
-Mirrors ``Model.init_params``, ``forward``, ``init_cache``, ``prefill``
-and ``decode_step`` of the JAX package's ``models/model.py`` for every
-family (``loss`` comes with training).  Parameters
+Mirrors ``Model.init_params``, ``forward``, ``loss``, ``init_cache``,
+``prefill`` and ``decode_step`` of the JAX package's ``models/model.py``
+for every family.  Parameters
 are a nested dict with the JAX pytree's layout: ``{"embed": {"table"},
 "blocks": {...stacked...}, "final_norm": {"scale"}, "head": {"w"}}``; the
 cache is a nested dict stacked ``[num_blocks, ...]`` the same way.
 Unlike the JAX versions, ``prefill`` and ``decode_step`` update the cache
-in place (and return it).
+in place (and return it).  With ``remat``, each block of ``forward`` runs
+under ``torch.utils.checkpoint`` (non-reentrant), as ``jax.checkpoint``
+wraps the JAX scan body: its activations are recomputed in the backward
+instead of kept.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import first_pass_of_checkpoint
 from repro_torch.models import blocks as blk
 from repro_torch.models.layers import (
+    cross_entropy,
     embed,
     init_embedding,
     init_rms_norm,
@@ -28,9 +35,16 @@ from repro_torch.models.layers import (
 from repro_torch.util.device import resolve_device
 
 
+def _remat_contexts() -> tuple:
+    """``context_fn`` of a checkpointed block: K1's forward skips the LSE
+    in the first pass, whose saved tensors checkpointing drops."""
+    return first_pass_of_checkpoint(), contextlib.nullcontext()
+
+
 class Model:
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, remat: bool = False):
         self.cfg = cfg
+        self.remat = remat
 
     def init_params(self, seed: int = 0, dtype=torch.float32,
                     device: Union[str, torch.device] = "cuda") -> Dict:
@@ -57,21 +71,47 @@ class Model:
                                                        tokens)
 
     def forward(self, params: Dict, tokens: Optional[torch.Tensor] = None,
-                embeds: Optional[torch.Tensor] = None) -> tuple:
+                embeds: Optional[torch.Tensor] = None,
+                impl: str = "auto") -> tuple:
         """tokens [B, S] (or embeds [B, S, d]) -> (logits [B, S, vocab],
         router stats summed over blocks as 0-d fp32 tensors: ``aux_loss``,
-        ``router_z``, ``dropped_frac``; zero without an MoE sublayer)."""
+        ``router_z``, ``dropped_frac``; zero without an MoE sublayer).
+        ``impl`` picks the blocks' kernels, as in :meth:`prefill`."""
         x = self._embed_in(params, tokens, embeds)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
         stats = {k: torch.zeros((), dtype=torch.float32, device=x.device)
                  for k in blk.ZERO_STATS}
         for i in range(self.cfg.num_blocks):
-            x, st = blk.block_forward(blk.block_params(params["blocks"], i),
-                                      self.cfg, x, positions)
+            bp = blk.block_params(params["blocks"], i)
+            if self.remat:
+                # The block draws no random numbers: no RNG state to keep.
+                x, st = checkpoint(blk.block_forward, bp, self.cfg, x,
+                                   positions, impl, use_reentrant=False,
+                                   preserve_rng_state=False,
+                                   context_fn=_remat_contexts)
+            else:
+                x, st = blk.block_forward(bp, self.cfg, x, positions, impl)
             stats = {k: stats[k] + st[k] for k in stats}
         x = rms_norm(x, params["final_norm"]["scale"], self.cfg.rms_eps)
         return unembed(params["head"], x), stats
+
+    def loss(self, params: Dict, batch: Dict, impl: str = "auto") -> tuple:
+        """batch: {tokens | embeds, labels, [mask]} (tensors) -> (total,
+        metrics): the fp32 token cross-entropy plus ``router_aux_coef``
+        times the summed ``aux_loss`` plus 1e-4 ``router_z``; metrics
+        ``ce``, ``aux_loss``, ``router_z``, ``dropped_frac`` and
+        ``loss``, 0-d tensors."""
+        logits, stats = self.forward(params, batch.get("tokens"),
+                                     batch.get("embeds"), impl=impl)
+        ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
+        m = self.cfg.moe
+        aux_coef = m.router_aux_coef if m is not None else 0.0
+        total = ce + aux_coef * stats["aux_loss"] + 1e-4 * stats["router_z"]
+        metrics = {"ce": ce, "aux_loss": stats["aux_loss"],
+                   "router_z": stats["router_z"],
+                   "dropped_frac": stats["dropped_frac"], "loss": total}
+        return total, metrics
 
     # -- decode path -----------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,

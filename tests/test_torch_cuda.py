@@ -14,7 +14,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import flash_attention as k1_lib  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
+    BACKWARD_CASES,
+    BACKWARD_LIMIT,
     BATCHED_MAIN_CASES,
     DECODE_CASES,
     DECODE_CORNER_CASES,
@@ -50,6 +53,7 @@ from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     decode_attention_ref,
+    flash_attention_bwd_ref,
     flash_attention_ref,
     ssd_scan_ref,
 )
@@ -598,3 +602,139 @@ def test_simulator_on_a_database_measured_on_card(card, qwen_two_blocks):
         tput[name] = t.summary()["mean_throughput_qps"]
     assert all(np.isfinite(v) and v > 0 for v in tput.values())
     assert tput["oracle"] >= max(tput.values()) * (1 - 1e-9)
+
+
+# -- training: K1's backward kernel and a train step on the card ------------
+
+
+def _k1_counts():
+    return (flash_attention.launches, flash_attention.lse_launches,
+            flash_attention.backward_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BACKWARD_CASES, ids=case_id)
+def test_backward_kernel_matches_plain_version(card, case):
+    """dq, dk, dv of csrc/flash_attention_bwd.cu against autograd through
+    the plain attention, each within BACKWARD_LIMIT of max |ref|, twice
+    with the same bits (no atomics); the LSE entry point's output is the
+    plain entry point's, bit for bit."""
+    B, Hq, Hkv, S, D, causal, window, dtype = case
+    q, k, v, do = _inputs([(B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D),
+                           (B, Hq, S, D)], dtype, seed=11)
+    o, lse = k1_lib.forward_with_lse(q, k, v, causal=causal, window=window)
+    n = _k1_counts()
+    o_plain = flash_attention(q, k, v, causal=causal, window=window)
+    got = k1_lib.backward(q, k, v, o, lse, do, causal=causal, window=window)
+    again = k1_lib.backward(q, k, v, o, lse, do, causal=causal,
+                            window=window)
+    torch.cuda.synchronize()
+    assert _k1_counts() == (n[0] + 1, n[1], n[2] + 2)
+    assert torch.equal(o, o_plain)
+    want = flash_attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+    for name, g, w, g2 in zip(("dq", "dk", "dv"), got, want, again):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        assert max_ratio(g, w) <= BACKWARD_LIMIT, name
+        assert torch.equal(g, g2), name
+
+
+@pytest.mark.cuda
+def test_lse_is_the_rows_log_sum_exp(card):
+    q, k, v = _inputs([(2, 14, 200, 64), (2, 2, 200, 64), (2, 2, 200, 64)],
+                      "float32", seed=12)
+    _, lse = k1_lib.forward_with_lse(q, k, v, causal=True, window=50)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k.repeat_interleave(7, 1)) * 0.125
+    i = torch.arange(200, device="cuda")
+    keep = (i[:, None] >= i[None]) & (i[:, None] - i[None] < 50)
+    want = torch.logsumexp(s.masked_fill(~keep, float("-inf")), dim=-1)
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_wrapper_gradient_comes_from_the_backward_kernel(card):
+    """fp32 inputs that require grad: the output has a grad_fn, one forward
+    (with the LSE) and one backward launch, gradients of the plain
+    version's; in the model's strided [B, S, H, D] layout."""
+    B, Hq, Hkv, S, D = 2, 14, 2, 130, 64
+    (x,) = _inputs([(B, S, Hq + 2 * Hkv, D)], "float32", seed=13)
+    (do,) = _inputs([(B, Hq, S, D)], "float32", seed=14)
+    x.requires_grad_(True)
+    q, k, v = (x[:, :, :Hq].transpose(1, 2),
+               x[:, :, Hq:Hq + Hkv].transpose(1, 2),
+               x[:, :, Hq + Hkv:].transpose(1, 2))
+    n = _k1_counts()
+    out = ops.flash_attention(q, k, v, impl="cuda")
+    assert out.grad_fn is not None
+    (gx,) = torch.autograd.grad(out, x, do)
+    torch.cuda.synchronize()
+    assert _k1_counts() == (n[0] + 1, n[1] + 1, n[2] + 1)
+    xr = x.detach().clone().requires_grad_(True)
+    out_r = ops.flash_attention(xr[:, :, :Hq].transpose(1, 2),
+                                xr[:, :, Hq:Hq + Hkv].transpose(1, 2),
+                                xr[:, :, Hq + Hkv:].transpose(1, 2),
+                                impl="ref")
+    (gr,) = torch.autograd.grad(out_r, xr, do)
+    assert max_ratio(gx, gr) <= BACKWARD_LIMIT
+
+
+@pytest.mark.cuda
+def test_kernels_raise_under_grad_on_card(card):
+    """K3 and bf16 K1 have no backward kernel yet and K2 is never
+    differentiated: each raises when an input requires grad under grad
+    mode, and runs under no_grad."""
+    q, k, v = _inputs([(1, 4, 64, 64), (1, 2, 64, 64), (1, 2, 64, 64)],
+                      "bfloat16")
+    q.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        flash_attention(q, k, v)
+    with torch.no_grad():
+        flash_attention(q, k, v)
+    x, dt, Bm, Cm = _inputs([(1, 64, 4, 64), (1, 64, 4), (1, 64, 32),
+                             (1, 64, 32)], "float32")
+    A = -torch.ones(4, device="cuda", requires_grad=True)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        ssd_scan(x, torch.nn.functional.softplus(dt), A, Bm, Cm, chunk=32)
+    with torch.inference_mode():
+        ssd_scan(x, torch.nn.functional.softplus(dt), A, Bm, Cm, chunk=32)
+    qd, kd, vd = _inputs([(1, 4, 64), (1, 2, 128, 64), (1, 2, 128, 64)],
+                         "float32")
+    kd.requires_grad_(True)
+    with pytest.raises(ValueError, match="not differentiable"):
+        decode_attention(qd, kd, vd, 100)
+    with torch.no_grad():
+        decode_attention(qd, kd, vd, 100)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "hubert-xlarge"])
+def test_train_step_on_card_matches_cpu(card, arch):
+    """One train step's loss and gradients (K1 forward and backward, remat)
+    on the card against the same step on the CPU (plain attention)."""
+    from repro_torch.training import AdamWConfig, make_train_step
+    from repro_torch.training.data import SyntheticEmbeds, SyntheticLM
+    from repro_torch.training.optimizer import leaves
+    from repro_torch.training.train_loop import loss_and_grads, to_batch
+    cfg = get_smoke_config(arch)
+    params = Model(cfg).init_params(0, device="cpu")
+    data = (SyntheticEmbeds(cfg.d_model, cfg.vocab_size, 64, 2)
+            if cfg.embedding_inputs else SyntheticLM(cfg.vocab_size, 64, 2))
+    batch = data.batch_at(0)
+    model = Model(cfg, remat=True)
+    n = _k1_counts()
+    (l_card, _), g_card = loss_and_grads(model, _to_card(params),
+                                         to_batch(batch, torch.device("cuda")))
+    torch.cuda.synchronize()
+    blocks = cfg.num_blocks
+    assert _k1_counts() == (n[0] + 2 * blocks, n[1] + blocks, n[2] + blocks)
+    (l_cpu, _), g_cpu = loss_and_grads(model, params,
+                                       to_batch(batch, torch.device("cpu")))
+    assert float(l_card) == pytest.approx(float(l_cpu), rel=1e-5)
+    for a, b in zip(leaves(g_card), leaves(g_cpu)):
+        err = _rms(a.cpu() - b)
+        assert err <= 1e-4 * _rms(b) or err == 0.0
+    step = make_train_step(cfg, AdamWConfig(warmup_steps=1))
+    from repro_torch.training import init_adamw
+    p_card = _to_card(params)
+    _, state, metrics = step(p_card, init_adamw(p_card),
+                             to_batch(batch, torch.device("cuda")))
+    assert int(state["count"]) == 1 and np.isfinite(float(metrics["loss"]))

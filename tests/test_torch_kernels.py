@@ -7,6 +7,7 @@ torch = pytest.importorskip("torch")
 
 import functools  # noqa: E402
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -22,12 +23,16 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     decode_attention_ref,
+    flash_attention_bwd_ref,
     flash_attention_ref,
     ssd_scan_ref,
 )
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.models import mamba2 as port_mamba  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
+    BACKWARD_CASES,
+    BACKWARD_LIMIT,
+    BACKWARD_TRAIN_CASE,
     DECODE_CASES,
     DECODE_CORNER_CASES,
     DECODE_FAMILY_MAIN_CASES,
@@ -700,3 +705,79 @@ def test_family_ssd_cases_are_well_formed(case):
               for c in (get_config("jamba-1.5-large-398b"),
                         get_smoke_config("jamba-1.5-large-398b"))]
     assert (H, P, N, chunk) in widths
+
+
+# -- K1's backward: the plain version (the kernel runs only on the card) ---
+
+# The JAX package's FLASH_CASES in fp32, and a ragged one with a window.
+BWD_JAX_CASES = ([c for c in FLASH_CASES if c[7] == "float32"]
+                 + [RAGGED_CASES[1]])
+# Two fp32 materialisations of the same gradient, summed in different
+# orders: an order below the kernel's BACKWARD_LIMIT.
+BWD_REF_LIMIT = 1e-5
+
+
+@pytest.mark.parametrize("case", BWD_JAX_CASES, ids=case_id)
+def test_flash_attention_bwd_ref_matches_jax_grad(case):
+    """flash_attention_bwd_ref against jax.grad of the JAX package's
+    kernels/ref.py::flash_attention_ref, on the same inputs and dO."""
+    B, Hq, Hkv, S, D, causal, window, dtype = case
+    (jq, jk, jv), (q, k, v) = _inputs(B, Hq, Hkv, S, D, dtype, seed=5)
+    do = np.random.default_rng(6).standard_normal((B, Hq, S, D)).astype(
+        np.float32)
+
+    def objective(a, b, c):
+        out = jax_ref.flash_attention_ref(a, b, c, causal=causal,
+                                          window=window)
+        return jnp.sum(out * jnp.asarray(do))
+
+    want = jax.grad(objective, argnums=(0, 1, 2))(jq, jk, jv)
+    got = flash_attention_bwd_ref(q, k, v, torch.from_numpy(do),
+                                  causal=causal, window=window)
+    for name, t, g, w in zip(("dq", "dk", "dv"), (q, k, v), got, want):
+        assert g.shape == t.shape and g.dtype == t.dtype
+        assert max_ratio(g.numpy(), np.asarray(w)) <= BWD_REF_LIMIT, name
+
+
+def test_wrapper_gradient_on_cpu_is_the_plain_backward():
+    """On the CPU the wrapper runs the differentiable plain version: its
+    autograd gradient is flash_attention_bwd_ref's, and nothing launches."""
+    B, Hq, Hkv, S, D = 1, 4, 2, 70, 64
+    (_, _, _), (q, k, v) = _inputs(B, Hq, Hkv, S, D, "float32", seed=7)
+    do = torch.randn((B, Hq, S, D), generator=torch.Generator().manual_seed(8))
+    counts = (flash_attention.launches, flash_attention.lse_launches,
+              flash_attention.backward_launches)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = flash_attention(*leaves, causal=True, window=20)
+    assert out.grad_fn is not None
+    out.backward(do)
+    want = flash_attention_bwd_ref(q, k, v, do, causal=True, window=20)
+    for t, w in zip(leaves, want):
+        torch.testing.assert_close(t.grad, w, rtol=0, atol=0)
+    assert counts == (flash_attention.launches, flash_attention.lse_launches,
+                      flash_attention.backward_launches)
+
+
+@pytest.mark.parametrize("impl", ["ref", "auto"])
+def test_ops_flash_attention_is_differentiable_on_cpu(impl):
+    (_, _, _), (q, k, v) = _inputs(1, 4, 2, 64, 56, "float32", seed=9)
+    q.requires_grad_(True)
+    out = ops.flash_attention(q, k, v, impl=impl)
+    (g,) = torch.autograd.grad(out.square().sum(), q)
+    assert g.shape == q.shape and bool(torch.isfinite(g).all())
+
+
+@pytest.mark.parametrize("case", BACKWARD_CASES, ids=case_id)
+def test_backward_cases_are_well_formed(case):
+    """The kernel's shapes: fp32, D <= 128 with D % 4 == 0, GQA."""
+    B, Hq, Hkv, S, D, causal, window, dtype = case
+    assert dtype == "float32" and D <= 128 and D % 4 == 0 and Hq % Hkv == 0
+    assert window is None or 1 <= window
+
+
+def test_backward_cases_cover_the_training_shape_and_its_corners():
+    assert BACKWARD_TRAIN_CASE in BACKWARD_CASES
+    assert any(not c[5] for c in BACKWARD_CASES)              # bidirectional
+    assert any(c[6] is not None and c[6] < 32 for c in BACKWARD_CASES)
+    assert any(c[3] % 32 for c in BACKWARD_CASES)              # ragged S
+    assert BACKWARD_LIMIT == 1e-4
