@@ -10,15 +10,18 @@ time.
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions.
    There must be a CUDA device.
 2. build: the port's kernels K1 (its bf16 tensor-core kernel, its fp32
-   CUDA-core kernel and its fp32 backward), K2 and K3 from their sources in
-   this checkout, one ``nvcc`` per source, all started together;
-   ``ptxas``' registers, spills and the dynamic shared memory of K1's
-   tensor-core kernel, of its backward's launches and of K3's three
-   launches (with their grids at mamba2-370m's shape).
+   kernel and its fp32 backward, both 3xTF32 on the tensor cores), K2 and
+   K3 from their sources in this checkout, one ``nvcc`` per source, all
+   started together; ``ptxas``' registers, spills and the dynamic shared
+   memory of K1's kernels, of its backward's launches and of K3's three
+   launches (with their grids at mamba2-370m's shape); the TF32
+   tensor-core instructions (``HMMA.1688.F32.TF32`` in ``cuobjdump
+   -sass``) of each fp32 kernel, which must not be 0.
 3. K1 (flash attention) against its plain version on the card, at the
    shapes and tolerances of ``repro_torch.kernels.cases``: the JAX
-   package's FLASH_CASES shapes in fp32 (TF32 off, tolerance 2e-5; the
-   CUDA-core kernel) and bf16 (5e-2; the tensor-core kernel), ragged
+   package's FLASH_CASES shapes in fp32 (tolerance 2e-5; the fp32 kernel,
+   3xTF32, against a plain version with TF32 off) and bf16 (5e-2; the
+   bf16 kernel), ragged
    sequence lengths, TENSOR_CORE_CASES (the tensor-core kernel's corners),
    and the main path's shape -- q [1, 32, S, 128], k/v [1, 8, S, 128],
    causal, bf16, at S = 1024 and 2048, contiguous and in the model's
@@ -197,9 +200,11 @@ time.
       BACKWARD_CASES: dq, dk and dv each within BACKWARD_LIMIT of max |ref|;
       the fp32 forward's LSE entry point bit-equal to its plain entry
       point.  Both timed at the training shape (8, 14, 2, 256, 64) and at
-      (1, 14, 2, 1024, 64) beside the plain version, autograd's backward of
-      fp32 ``scaled_dot_product_attention`` (a yardstick the port never
-      calls) and the fp32 bound;
+      (1, 14, 2, 1024, 64) beside the plain version, fp32
+      ``scaled_dot_product_attention`` and autograd's backward of it (a
+      yardstick the port never calls), with the operations they execute
+      (TFLOP/s) and two bounds: the fp32 CUDA-core peak's and three TF32
+      products' at the tensor-core peak (the lesser is the row's bound);
    b. full-width qwen2-0.5b (24 blocks, 0.63 B parameters) in fp32 with
       remat per block, batches of ``SyntheticLM(vocab, 256, 8, seed=0)``:
       step 0's loss and every gradient leaf with K1 against the same with
@@ -352,6 +357,7 @@ from repro_torch.workloads import (  # noqa: E402
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM, dense bf16 tensor cores
 PEAK_FP32_FLOPS = 67e12       # H100 SXM, fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12      # H100 SXM, dense TF32 tensor cores
 PEAK_HBM_BYTES = 3.35e12      # H100 SXM, HBM3
 KERNELS = ("flash_attention_bf16", "flash_attention", "flash_attention_bwd",
            "decode_attention", "ssd_scan")
@@ -643,7 +649,7 @@ def decode_work(B, Hq, Hkv, S, D, index, window, elem_bytes) -> tuple:
     return flops, nbytes
 
 
-ROUTES = ("tensor_core_launches", "cuda_core_launches")
+ROUTES = ("tensor_core_launches", "fp32_launches")
 
 
 def reset_counts(wrapper) -> None:
@@ -655,6 +661,26 @@ def reset_counts(wrapper) -> None:
 
 def route_counts() -> dict:
     return {r: getattr(flash_attention, r) for r in ROUTES}
+
+
+def kernel_label(mangled: str) -> str:
+    """A K1 fp32 kernel's mangled name as ``function<template args>``."""
+    name = re.search(r"\d(flash_fwd|bwd_tiles|bwd_delta|bwd_dkv_sum)",
+                     mangled).group(1)
+    args = re.findall(r"L[ib](\d+)E", mangled)
+    return f"{name}<{', '.join(args)}>" if args else name
+
+
+def tf32_mma_counts(name: str) -> dict:
+    """Each kernel of ``csrc/<name>.cu``'s library (mangled name) -> its
+    TF32 tensor-core instructions, ``HMMA.1688.F32.TF32`` in ``cuobjdump
+    -sass``."""
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build.lib_path(name))], capture_output=True,
+                          text=True, check=True).stdout
+    return {part.split()[0]: part.count("HMMA.1688.F32.TF32")
+            for part in re.split(r"\n\s*Function : ", sass)[1:]}
 
 
 def ptxas_lines(nvcc_log: str) -> list:
@@ -692,8 +718,8 @@ def phase_kernel_check() -> dict:
     log(f"  K1 launches by route over these cases: {route_counts()}")
     if route_counts() != expected:
         raise AssertionError(f"K1 routes: {route_counts()}, expected "
-                             f"{expected} (bf16 on the tensor cores, fp32 on "
-                             f"the CUDA cores)")
+                             f"{expected} (bf16 on the bf16 kernel, fp32 on "
+                             f"the fp32 kernel)")
 
     main = {}
     for case in MAIN_CASES:
@@ -1190,7 +1216,7 @@ def phase_qwen(cfg, params, kernel_ms: float) -> dict:
     served = serve_under_odin(cfg, params, flash_attention, "K1", kernel_ms)
     # Serving launches no training kernel: no LSE forward, no backward.
     want = {"tensor_core_launches": cfg.num_blocks * NUM_QUERIES,
-            "cuda_core_launches": 0, "lse_launches": 0,
+            "fp32_launches": 0, "lse_launches": 0,
             "backward_launches": 0}
     if served["counts"] != want:
         raise AssertionError(f"K1 routes while serving: {served['counts']}, "
@@ -1599,8 +1625,7 @@ def serve_batched(cfg, params, counter, kernel: str,
             == fw.dispatches * cfg.num_blocks + fw.catchup,
     }
     if counter is flash_attention:
-        checks["every K1 launch on the tensor cores"] = \
-            counts["cuda_core_launches"] == 0
+        checks["every K1 launch bf16"] = counts["fp32_launches"] == 0
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"{cfg.name} batched serving: {failed}")
@@ -2121,7 +2146,7 @@ def phase_deepseek(k1_ms: float) -> dict:
                              f"{ratio:.3e}")
     served = serve_under_odin(cfg, params, flash_attention, "K1", k1_ms)
     want = {"tensor_core_launches": cfg.num_blocks * NUM_QUERIES,
-            "cuda_core_launches": 0, "lse_launches": 0,
+            "fp32_launches": 0, "lse_launches": 0,
             "backward_launches": 0}
     if served["counts"] != want:
         raise AssertionError(f"K1 routes while serving: {served['counts']}")
@@ -2162,12 +2187,12 @@ def phase_hubert(k1_ms: float) -> dict:
     log(f"  hubert-xlarge forward: K1 launches by route {counts} "
         f"(bidirectional, D {cfg.head_dim})")
     if not ok or counts != {"tensor_core_launches": cfg.num_blocks,
-                            "cuda_core_launches": 0}:
+                            "fp32_launches": 0}:
         raise AssertionError(f"hubert-xlarge forward: {counts}, logits ok "
                              f"{ok}")
     served = serve_under_odin(cfg, params, flash_attention, "K1", k1_ms,
                               num_queries=HUBERT_QUERIES, rebalance=False)
-    if served["counts"]["cuda_core_launches"]:
+    if served["counts"]["fp32_launches"]:
         raise AssertionError(f"K1 routes while serving: {served['counts']}")
     log_memory("hubert-xlarge")
     return dict(served=served)
@@ -3059,31 +3084,72 @@ def phase_fleet(qcfg, qparams, scfg, sparams) -> dict:
 # -- phase 13: training -------------------------------------------------------
 
 
+def key_tiles(S, q0, bq, bk, causal, window) -> range:
+    """The key tiles of ``bk`` keys that query rows [q0, q0 + bq) see, as
+    K1's fp32 kernels cull them."""
+    q_last = min(q0 + bq, S) - 1
+    end = q_last // bk + 1 if causal else -(-S // bk)
+    begin = max(q0 - window + 1, 0) // bk if window else 0
+    return range(begin, end)
+
+
+def query_tiles(S, k0, bk, bq, causal, window) -> range:
+    """The query tiles of ``bq`` rows that see keys [k0, k0 + bk)."""
+    nq = -(-S // bq)
+    begin = k0 // bq if causal else 0
+    end = (min(nq, (min(k0 + bk, S) - 1 + window - 1) // bq + 1) if window
+           else nq)
+    return range(begin, end)
+
+
+def fp32_width(D: int) -> int:
+    """The head-dim width K1's fp32 kernels run their products over (D
+    padded with zero columns to their template's 64 or 128)."""
+    return 64 if D <= 64 else 128
+
+
+def fwd_work(B, Hq, Hkv, S, D, causal, window) -> tuple:
+    """K1's fp32 forward with its LSE: (operations it needs, fp32
+    operations it executes, bytes).  It needs two products over the kept
+    (query, key) pairs; it executes them over whole 64 x 64 tiles at the
+    padded width, each as three TF32 products on the tensor cores.  Bytes:
+    q, k, v read once, o and the lse written once."""
+    needed = 2 * 2 * B * Hq * attention_pairs(S, causal, window) * D
+    tiles = sum(len(key_tiles(S, q0, 64, 64, causal, window))
+                for q0 in range(0, S, 64))
+    executed = 2 * 2 * 64 * 64 * fp32_width(D) * B * Hq * tiles
+    nbytes = 4 * (2 * Hq + 2 * Hkv) * B * S * D + 4 * B * Hq * S
+    return needed, executed, nbytes
+
+
 def bwd_work(B, Hq, Hkv, S, D, causal, window) -> tuple:
-    """K1's backward: (operations it needs, operations it executes, bytes).
-    It needs five products over the kept (query, key) pairs (S, dP, dV, dK,
-    dQ); it executes seven over whole 64 x 32 tiles (the dQ launch
-    recomputes S and dP).  Bytes: q, k, v, o, dO and the fp32 lse read
-    once, dq, dk and dv written once."""
-    pairs = attention_pairs(S, causal, window)      # causal or no window
-    needed = 5 * 2 * B * Hq * pairs * D
-    BQ, BK = 64, 32
-    nq, nk = -(-S // BQ), -(-S // BK)
-    kv_tiles = 0                       # (key tile, query tile) pairs, launch 2
-    for kt in range(nk):
-        k_last = min(kt * BK + BK, S) - 1
-        qb = kt * BK // BQ if causal else 0
-        qe = min(nq, (k_last + window - 1) // BQ + 1) if window else nq
-        kv_tiles += max(qe - qb, 0)
-    q_tiles = 0                        # (query tile, key tile) pairs, launch 3
-    for qt in range(nq):
-        q0 = qt * BQ
-        ke = (min(q0 + BQ, S) - 1) // BK + 1 if causal else nk
-        kb = max(q0 - window + 1, 0) // BK if window else 0
-        q_tiles += ke - kb
-    executed = 2 * BQ * BK * D * B * Hq * (4 * kv_tiles + 3 * q_tiles)
+    """K1's backward: (operations it needs, fp32 operations it executes,
+    bytes).  It needs five products over the kept (query, key) pairs (S,
+    dP, dV, dK, dQ); it executes seven over whole tiles at the padded
+    width, each as three TF32 products: four for each (64-key, 32-query)
+    tile pair of its dK/dV blocks, three (S and dP again, dQ) for each
+    (64-query, 32-key) pair of its dQ blocks.  Bytes: q, k, v, o, dO and
+    the fp32 lse read once, dq, dk and dv written once."""
+    needed = 5 * 2 * B * Hq * attention_pairs(S, causal, window) * D
+    kv_pairs = sum(len(query_tiles(S, k0, 64, 32, causal, window))
+                   for k0 in range(0, S, 64))
+    q_pairs = sum(len(key_tiles(S, q0, 64, 32, causal, window))
+                  for q0 in range(0, S, 64))
+    executed = (2 * 64 * 32 * fp32_width(D) * B * Hq
+                * (4 * kv_pairs + 3 * q_pairs))
     nbytes = 4 * B * S * D * (4 * Hq + 4 * Hkv) + 4 * B * Hq * S
     return needed, executed, nbytes
+
+
+def fp32_bounds(needed: float, nbytes: float) -> tuple:
+    """K1's fp32 kernels: ((bound_ms, bound_by) the lesser of the two
+    bounds, the fp32 CUDA-core bound, the 3xTF32 bound).  Each is the
+    larger of the bytes over HBM's rate and the operations over a peak:
+    the needed operations at the fp32 CUDA-core peak, or three TF32
+    products for each at the TF32 tensor-core peak."""
+    cuda = bound(needed, nbytes, PEAK_FP32_FLOPS)
+    tf32 = bound(3 * needed, nbytes, PEAK_TF32_FLOPS)
+    return min(cuda, tf32), cuda, tf32
 
 
 def phase_backward_check() -> dict:
@@ -3147,32 +3213,35 @@ def phase_backward_check() -> dict:
         library_fwd_ms = time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=True))
-        needed, executed, nbytes = bwd_work(*case[:7])
-        bwd_bound_ms, bwd_by = bound(needed, nbytes, PEAK_FP32_FLOPS)
-        fwd_bound_ms, fwd_by = bound(
-            4 * B * Hq * attention_pairs(S, causal) * D,
-            (2 * Hq + 2 * Hkv) * B * S * D * 4 + 4 * B * Hq * S,
-            PEAK_FP32_FLOPS)
-        timed[case] = dict(
-            bwd=dict(ms=bwd_ms, plain_ms=plain_bwd_ms,
-                     library_ms=library_bwd_ms, bound_ms=bwd_bound_ms,
-                     bound_by=bwd_by),
-            fwd=dict(ms=fwd_ms, plain_ms=plain_fwd_ms,
-                     library_ms=library_fwd_ms, bound_ms=fwd_bound_ms,
-                     bound_by=fwd_by))
-        log(f"  K1 backward {case}: kernel_ms {bwd_ms:.4f} (4 launches)  "
+        lines, timed[case] = {}, {}
+        for kind, work, ms, plain_ms, library_ms in (
+                ("bwd", bwd_work, bwd_ms, plain_bwd_ms, library_bwd_ms),
+                ("fwd", fwd_work, fwd_ms, plain_fwd_ms, library_fwd_ms)):
+            needed, executed, nbytes = work(*case[:7])
+            (bound_ms, bound_by), cuda, tf32 = fp32_bounds(needed, nbytes)
+            timed[case][kind] = dict(ms=ms, plain_ms=plain_ms,
+                                     library_ms=library_ms,
+                                     bound_ms=bound_ms, bound_by=bound_by)
+            lines[kind] = (
+                f"bound_ms {bound_ms:.4f} ({bound_by}; the lesser of the "
+                f"3xTF32 bound {tf32[0]:.4f} ms, {3 * needed / 1e9:.3f} "
+                f"GFLOP of TF32 products at {PEAK_TF32_FLOPS / 1e12:.0f} "
+                f"TFLOP/s, and the fp32 CUDA-core bound {cuda[0]:.4f} ms at "
+                f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s; {nbytes / 1e6:.1f} "
+                f"MB); it executes {executed / 1e9:.3f} GFLOP of fp32 "
+                f"products over whole tiles ({needed / 1e9:.3f} needed), "
+                f"{executed / ms / 1e9:.1f} TFLOP/s, as "
+                f"{3 * executed / ms / 1e9:.1f} TFLOP/s of TF32 products")
+        log(f"  K1 backward {case}: kernel_ms {bwd_ms:.4f} (3 launches: "
+            f"delta, the dK/dV and dQ tiles, the sum of the GQA shares)  "
             f"plain_ms {plain_bwd_ms:.4f} (autograd through the plain "
             f"attention)  library_ms {library_bwd_ms:.4f} (autograd's "
-            f"backward of fp32 scaled_dot_product_attention)  bound_ms "
-            f"{bwd_bound_ms:.4f} ({bwd_by}: {needed / 1e9:.3f} GFLOP needed "
-            f"(5 products over the kept pairs) at the 67 TFLOP/s fp32 peak; "
-            f"the kernel executes {executed / 1e9:.3f} GFLOP (7 products over "
-            f"whole tiles), {executed / bwd_ms / 1e9:.1f} TFLOP/s; "
-            f"{nbytes / 1e6:.1f} MB)")
+            f"backward of fp32 scaled_dot_product_attention; kernel / "
+            f"library {bwd_ms / library_bwd_ms:.2f})  {lines['bwd']}")
         log(f"  K1 fp32 forward with LSE {case}: kernel_ms {fwd_ms:.4f}  "
             f"plain_ms {plain_fwd_ms:.4f}  library_ms {library_fwd_ms:.4f} "
-            f"(fp32 scaled_dot_product_attention)  bound_ms "
-            f"{fwd_bound_ms:.4f} ({fwd_by}, fp32 peak)")
+            f"(fp32 scaled_dot_product_attention; kernel / library "
+            f"{fwd_ms / library_fwd_ms:.2f})  {lines['fwd']}")
     return dict(worst=worst, timed=timed)
 
 
@@ -3216,7 +3285,8 @@ def k1_kernel_ms(prof) -> dict:
         out["total"] += t
         if "flash_fwd" in ev.key:
             out["fwd"] += t
-        elif any(k in ev.key for k in ("bwd_delta", "bwd_dkv", "bwd_dq")):
+        elif any(k in ev.key for k in ("bwd_delta", "bwd_tiles",
+                                       "bwd_dkv_sum")):
             out["bwd"] += t
         elif "gemm" in ev.key.lower():
             out["gemm"] += t
@@ -3253,7 +3323,7 @@ def phase_train() -> dict:
     log(f"  {TRAIN_STEPS} steps: losses {[round(x, 4) for x in losses]}")
     log(f"  K1 launches over the {TRAIN_STEPS} steps: {counts}")
     n = cfg.num_blocks * TRAIN_STEPS
-    want = dict(launches=2 * n, cuda_core_launches=2 * n, lse_launches=n,
+    want = dict(launches=2 * n, fp32_launches=2 * n, lse_launches=n,
                 backward_launches=n, tensor_core_launches=0)
     if counts != want:
         raise AssertionError(f"K1 launches in training: {counts}, expected "
@@ -3434,16 +3504,37 @@ def main() -> None:
         for name, line in ptxas_lines(logs["decode_attention"] or ""):
             if "bfloat16" in name:
                 log(f"  K2 decode_fwd (bf16): {line}")
+        fwd_lib = build.load("flash_attention")
+        smem = fwd_lib.odin_flash_attention_smem_bytes
+        smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+        for name, line in ptxas_lines(logs["flash_attention"] or ""):
+            width, lse = re.search(r"flash_fwdILi(\d+)ELb(\d)", name).groups()
+            log(f"  K1 fp32 kernel, head dims padded to {width}"
+                f"{' (LSE entry)' if lse == '1' else ''}: {line}, "
+                f"{smem(int(width))} B dynamic shared memory")
         bwd_lib = build.load("flash_attention_bwd")
         smem = bwd_lib.odin_flash_attention_bwd_smem_bytes
-        smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_int
-        D = BACKWARD_TRAIN_CASE[4]
+        smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
         for name, line in ptxas_lines(logs["flash_attention_bwd"] or ""):
-            kernel = re.search(r"bwd_(?:dkv_sum|dkv|dq|delta)", name).group()
-            which = {"bwd_dkv": 0, "bwd_dq": 1}.get(kernel)
-            log(f"  K1 backward {kernel}: {line}" + (
-                "" if which is None else
-                f", {smem(which, D)} B dynamic shared memory at D {D}"))
+            kernel = re.search(r"bwd_(?:dkv_sum|tiles|delta)", name).group()
+            width = re.search(r"ILi(\d+)E", name)
+            log(f"  K1 backward {kernel}"
+                + ("" if width is None else
+                   f", head dims padded to {width.group(1)}")
+                + f": {line}" + ("" if width is None else
+                                 f", {smem(int(width.group(1)))} B "
+                                 f"dynamic shared memory"))
+        # The fp32 kernels' products on the tensor cores: TF32 mma.sync.
+        for name in ("flash_attention", "flash_attention_bwd"):
+            counts = tf32_mma_counts(name)
+            for fn, n in counts.items():
+                log(f"  {name}.cu {kernel_label(fn)}: {n} "
+                    f"HMMA.1688.F32.TF32")
+            products = [n for fn, n in counts.items()
+                        if "flash_fwd" in fn or "bwd_tiles" in fn]
+            if not products or min(products) == 0:
+                raise AssertionError(f"{name}: a kernel has no TF32 "
+                                     f"tensor-core instruction: {counts}")
 
     phase("phase 2: build K1 (bf16, fp32 and its backward), K2, K3",
           build_all)
@@ -3551,7 +3642,7 @@ def main() -> None:
     k1_train = bwd["timed"][BACKWARD_TRAIN_CASE]
     rows += [
         ("flash_attention_fp32", "flash_attention.py:96",
-         trained["counts"]["cuda_core_launches"],
+         trained["counts"]["fp32_launches"],
          dict(k1_train["fwd"], max_abs_err=bwd["worst"]["fwd"])),
         ("flash_attention_bwd", "flash_attention.py:96",
          trained["counts"]["backward_launches"],

@@ -2,9 +2,9 @@
 
 * ``csrc/*.cu`` -- CUDA C++ sources for ``sm_90a`` (built by ``build``)
 * ``flash_attention`` -- wrapper of kernel K1 (replaces the Pallas
-  ``repro.kernels.flash_attention``): bf16 on the tensor cores, fp32 on
-  the CUDA cores, with a launch count for each; fp32 inputs that require
-  grad take its backward kernel (``csrc/flash_attention_bwd.cu``, which
+  ``repro.kernels.flash_attention``): bf16 and fp32 (3xTF32) kernels,
+  both on the tensor cores, with a launch count for each; fp32 inputs that
+  require grad take its backward kernel (``csrc/flash_attention_bwd.cu``, which
   has no Pallas counterpart) through an autograd Function
 * ``decode_attention`` -- wrapper of kernel K2 (replaces the Pallas
   ``repro.kernels.decode_attention``), with its launch count

@@ -7,8 +7,9 @@ interface::
         -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so <name>.cu
 
 The library lands in ``build/kernels/`` at the repository root; its name
-carries a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one is loaded as it is.  A source builds at first use
+carries a hash of the source, of the headers in ``csrc/`` (``*.cuh``, which
+a source may include) and of the flags, so an edited source or header
+rebuilds and an unchanged one is loaded as it is.  A source builds at first use
 (:func:`load`), or ahead of it (:func:`build_kernels` runs one ``nvcc``
 per source in parallel).  A failed build raises with ``nvcc``'s output;
 there is no fallback.
@@ -45,7 +46,8 @@ def _nvcc() -> str:
 def lib_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is built."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -2,10 +2,11 @@
 plain version, in the tests and on the card.
 
 K1 (flash attention): a case is ``(B, Hq, Hkv, S, D, causal, window,
-dtype)``; bf16 cases run on its tensor-core kernel, fp32 ones on its
-CUDA-core kernel, and BACKWARD_CASES on its fp32 backward kernel.  K2 (decode attention): ``(B, Hq, Hkv, S, D, index,
-window, dtype)``.  K3 (SSD scan): ``(b, S, H, P, N, chunk, dtype)``.
-Dtypes are named as torch dtypes.
+dtype)``; bf16 cases run on its bf16 kernel, fp32 ones on its fp32
+kernel (3xTF32), and BACKWARD_CASES on its fp32 backward kernel.  K2
+(decode attention): ``(B, Hq, Hkv, S, D, index, window, dtype)``.  K3
+(SSD scan): ``(b, S, H, P, N, chunk, dtype)``.  Dtypes are named as torch
+dtypes.
 """
 from __future__ import annotations
 

@@ -9,25 +9,81 @@
 // inputs go to the tensor-core kernel of flash_attention_bf16.cu.
 //
 // What bounds it on an H100: for long sequences the two matrix products
-// (2 * B * Hq * S^2 * D operations when causal) -- the work grows as S^2
-// while the bytes (q, k, v, o once each) grow as S; for short sequences the
-// bytes and the launch.  It keeps the S x S score matrix out of device
-// memory entirely (each 64 x 32 score tile lives in shared memory and is
-// consumed at once), reads each K/V tile once per 64 query rows, and skips
-// tiles beyond the causal frontier or outside the window, which halves the
-// causal work.  The products run on the fp32 CUDA cores with float4
-// shared-memory reads (register-tiled 4 x 2 scores and 4 x 8 outputs per
-// thread): the JAX package's fp32 limit (2e-5) rules out TF32, the only
-// tensor-core type that takes fp32 operands.
+// (2 * B * Hq * pairs * D operations each) -- the work grows as S^2 while
+// the bytes (q, k, v, o once each) grow as S; for short sequences the bytes
+// and the launch.  It keeps the S x S score matrix out of device memory (a
+// warp's 16 x 64 score tile lives in its mma fragments), reads each K/V
+// tile once per 64 query rows, and skips tiles beyond the causal frontier
+// or outside the window, which halves the causal work.
+//
+// Both products run on the tensor cores, mma.sync m16n8k8 with TF32
+// operands and fp32 accumulators, in the 3xTF32 split: each fp32 operand x
+// is hi = tf32(x) plus lo = tf32(x - hi) (cvt.rna), and a product is
+// lo.hi + hi.lo + hi.hi, the small terms accumulated first (CUTLASS's
+// fast-fp32 path).  That carries about 22 significant bits into the fp32
+// accumulator; the dropped lo.lo is about 2^-22 of a product.  One TF32
+// product keeps 11 bits (a relative error near 2^-11 in every score), far
+// outside the fp32 limit of 2e-5; the split meets it.  At 495 TFLOP/s of
+// dense TF32, three products bound the fp32-exact work at about 165
+// TFLOP/s, 2.5x the 67 TFLOP/s of the fp32 CUDA cores.  mma.sync and not
+// wgmma: wgmma takes TF32 operands only K-major from shared memory, and V,
+// the B operand of P V, is not; mma.sync's 16 x 8 tiles also follow D 56,
+// D 80 and a ragged S.
+//
+// Tiles: one block of 4 warps per (64-row query tile, query head, batch),
+// each warp owning 16 rows, the causal blocks with the most key tiles
+// first; the KV axis is a loop inside the block over tiles of 64 keys.  K
+// and V tiles take turns in a two-stage ring of 16-byte cp.async copies
+// (zero-filled past S): V(t) lands while S(t) = Q K(t)^T runs, K(t+1)
+// while P V(t) runs.  The thread that copied a piece splits it when it
+// lands: hi in place, lo into the tile's lo buffer, so each element is
+// split once per block, not once per use; Q is split once when the block
+// starts.  D is padded with zero columns to the template's 64 or 128, over
+// which every product runs with no test per tile (a test per 8-column
+// tile, with the swizzled address computed at each load, put a branch and
+// integer work before every load in the SASS).  A tile that every row of
+// the block sees whole skips the mask.
+//
+// Fragments: the k index of an m16n8k8 product may be permuted, as long as
+// A and B agree.  Slot t of a thread's k pair carries column 2t of the
+// 8-wide slice and slot t + 4 column 2t + 1.  Then (i) A fragments of Q and
+// B fragments of K are adjacent pairs of a shared-memory row (one 8-byte
+// load each), and (ii) the accumulator fragment of S, which holds columns
+// 2t and 2t + 1 of rows g and g + 8, is already the A fragment of P V:
+// P goes from the online softmax to the second product in registers, with
+// no shuffle and no shared memory.  V's B fragments are two scalar loads of
+// one column.  Shared tiles are stored with the 8-word column groups of row
+// r XOR-swizzled by ((r & 3) ^ ((r >> 2) & 1)), which makes both the pair
+// loads (4 rows x 8 words a half-warp) and the column loads (rows 2t, 2t + 1
+// across 8 columns) free of bank conflicts; each lane's swizzled offsets are
+// computed once (Lanes), so every fragment load is a register plus an
+// immediate.  Each 3xTF32 product issues its three terms over 8 tiles in
+// turn, so 8 independent mma separate two on one accumulator.  These pieces
+// live in tf32_mma.cuh, which the backward shares.
+//
+// Online softmax on the accumulator fragments: each row's max by two quad
+// shuffles per tile, the row sums kept per thread and added across the quad
+// at the end.
+//
+// Measured (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W): 0.062 ms at
+// q [8, 14, 256, 64], k/v [8, 2, 256, 64], causal, with the LSE (fp32
+// scaled_dot_product_attention: 0.216 ms), 0.118 ms at [1, 14, 1024, 64]
+// (0.369 ms).  That is about 57 TFLOP/s of TF32 products, a fifth of what
+// mma.sync TF32 reaches on this card (about 300 TFLOP/s,
+// tools/k1_fp32_variants.py --mma-rate).  Rounding to TF32 by (bits +
+// 0x1000) & ~0x1fff, two integer instructions where ptxas lowers
+// cvt.rna.tf32.f32 to four with a test for inf and NaN, ran 5-6% faster
+// (tools/k1_fp32_variants.py) but turns CUDA's canonical NaN 0x7fffffff into
+// -0, so cvt.rna stays.  ptxas: 168 registers at width 64 and 216-219 at
+// 128, no spills; 96 KB of dynamic shared memory at 64 (two blocks an SM),
+// 192 KB at 128.
 //
 // Layout: q [B, Hq, S, D] and k, v [B, Hkv, S, D] given by element strides
 // (batch, head, sequence; the head-dim stride must be 1), so the model's
 // [B, S, H, D] projections are read in place.  The output is written with
 // its own strides.  Any S (the ragged last tile is masked), D <= 128 with
-// D % 4 == 0, fp32 inputs and accumulation.
-//
-// Grid: one block of 256 threads per (64-row query tile, query head, batch);
-// the KV axis is a loop inside the block, not a grid axis.
+// D % 4 == 0, fp32 inputs and accumulation.  Strides that are not multiples
+// of 4 elements, or bases not 16-byte aligned, take 4-byte copies.
 //
 // A second entry point, odin_flash_attention_fwd_lse, is the same kernel
 // that also writes each row's log-sum-exp of its scaled scores,
@@ -37,91 +93,59 @@
 // is what it was without it.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;          // query rows per block
-constexpr int BK = 32;          // keys per KV tile (one per lane in softmax)
-constexpr int NT = 256;         // threads per block (8 warps)
-constexpr int NW = NT / 32;
-constexpr int LDP = BK + 4;     // row stride of the score tile (16 B rows)
+constexpr int BQ = 64;          // query rows per block (16 per warp)
+constexpr int BK = 64;          // keys per K/V tile
 constexpr int MAX_D = 128;
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-__device__ __forceinline__ float comp(const float4& v, int u) {
-  return u == 0 ? v.x : (u == 1 ? v.y : (u == 2 ? v.z : v.w));
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Copy rows [r0, r0 + R) of one head into a shared fp32 tile with row
-// stride ld; rows at or beyond S are zero.  Warps take rows, lanes take
-// consecutive head-dim elements, so each row read is coalesced.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          long long ss, int r0, int R,
-                                          int S, int D, int ld) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < R; r += NW) {
-    const int row = r0 + r;
-    const T* s = src + (long long)row * ss;
-    for (int c = lane; c < D; c += 32)
-      dst[r * ld + c] = row < S ? to_f32(s[c]) : 0.f;
-  }
-}
-
-template <typename T, bool LSE>
+template <int DPM, bool LSE>
 __global__ void __launch_bounds__(NT)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o,
-          float* __restrict__ lse, int group, int S,
-          int D, long long qsb, long long qsh, long long qss, long long ksb,
-          long long ksh, long long kss, long long vsb, long long vsh,
-          long long vss, long long osb, long long osh, long long oss,
-          int causal, int window, float scale) {
+flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, float* __restrict__ o,
+          float* __restrict__ lse, int group, int S, int D, long long qsb,
+          long long qsh, long long qss, long long ksb, long long ksh,
+          long long kss, long long vsb, long long vsh, long long vss,
+          long long osb, long long osh, long long oss, int causal, int window,
+          float scale, int vec) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int ld = D + 4;  // D % 4 == 0, so every tile row is 16 B aligned
-  float* sQ = smem;            // [BQ][ld]
-  float* sK = sQ + BQ * ld;    // [BK][ld]
-  float* sV = sK + BK * ld;    // [BK][ld]
-  float* sP = sV + BK * ld;    // [BQ][LDP] scores, then probabilities
-  float* sM = sP + BQ * LDP;   // [BQ] running max
-  float* sL = sM + BQ;         // [BQ] running normaliser
-  float* sA = sL + BQ;         // [BQ] rescale factor of this tile
+  constexpr int lds = DPM;              // row stride of every tile
+  float* sQ = smem;                     // [BQ] rows each, swizzled
+  float* sQl = sQ + BQ * lds;
+  float* sK = sQl + BQ * lds;           // [BK] rows each
+  float* sKl = sK + BK * lds;
+  float* sV = sKl + BK * lds;
+  float* sVl = sV + BK * lds;
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * BQ;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const Lanes L(lds);
+  const int g = L.g, t = L.t;
+  // Causal: the query tiles with the most key tiles first.
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / group;
+  const int r0 = warp * 16;             // the warp's rows in the tile
+  const Pieces pieces(D, vec);
 
-  const T* qb = q + b * qsb + h * qsh;
-  const T* kb = k + b * ksb + kvh * ksh;
-  const T* vb = v + b * vsb + kvh * vsh;
-  T* ob = o + b * osb + h * osh;
+  const float* qb = q + b * qsb + h * qsh;
+  const float* kb = k + b * ksb + kvh * ksh;
+  const float* vb = v + b * vsb + kvh * vsh;
+  float* ob = o + b * osb + h * osh;
 
-  if (tid < BQ) {
-    sM[tid] = NEG_INF;
-    sL[tid] = 0.f;
+  // Columns [D, DPM) are never copied: zero them in every tile (the
+  // products run over all DPM columns).
+  if (D < DPM) {
+    const int w = DPM - D;
+    for (int e = tid; e < (2 * BQ + 4 * BK) * w; e += NT)
+      smem[at(e / w, D + e % w, lds)] = 0.f;
   }
-  load_tile(sQ, qb, qss, q0, BQ, S, D, ld);
 
   // Live KV tiles, as the TPU kernel's pl.when(live) culls them.
   const int nk = (S + BK - 1) / BK;
@@ -133,139 +157,152 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     if (lo > 0) kt_begin = lo / BK;
   }
 
-  float acc[4][8];
+  copy_tile(sQ, qb, qss, q0, BQ, S, lds, pieces);
+  cp_async_commit();
+  copy_tile(sK, kb, kss, kt_begin * BK, BK, S, lds, pieces);
+  cp_async_commit();
+  cp_async_wait<1>();                   // this thread's pieces of Q
+  split_tile(sQ, sQl, BQ, lds, pieces);
+
+  float acc[DPM / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < DPM / 8; ++n)
 #pragma unroll
-    for (int e = 0; e < 8; ++e) acc[i][e] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's P V is done with sV and sP
-    load_tile(sK, kb, kss, k0, BK, S, D, ld);
-    load_tile(sV, vb, vss, k0, BK, S, D, ld);
+    cp_async_wait<0>();                 // this thread's pieces of K(kt)
+    __syncthreads();                    // every warp is done with V(kt - 1)
+    copy_tile(sV, vb, vss, k0, BK, S, lds, pieces);
+    cp_async_commit();
+    split_tile(sK, sKl, BK, lds, pieces);
     __syncthreads();
 
-    // Scores: thread (ty, tx) owns rows ty + 16 i and keys tx + 16 j.
-    float sc[4][2];
+    // S = Q K^T: the warp's 16 rows x 64 keys.
+    float sc[BK / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) sc[i][0] = sc[i][1] = 0.f;
-    for (int d = 0; d < D; d += 4) {
-      float4 a[4], c[2];
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const float4*>(&sQ[(ty + 16 * i) * ld + d]);
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        c[j] = *reinterpret_cast<const float4*>(&sK[(tx + 16 * j) * ld + d]);
+    for (int ks = 0; ks < DPM / 8; ++ks) {
+      uint32_t ah[4], al[4], bh[BK / 8][2], bl[BK / 8][2];
+      frag_a(sQ, sQl, L, r0, ks, lds, ah, al);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          float s = sc[i][j];
-          s = fmaf(a[i].x, c[j].x, s);
-          s = fmaf(a[i].y, c[j].y, s);
-          s = fmaf(a[i].z, c[j].z, s);
-          s = fmaf(a[i].w, c[j].w, s);
-          sc[i][j] = s;
-        }
+      for (int j = 0; j < BK / 8; ++j)
+        frag_b_row(sK, sKl, L, 8 * j, ks, lds, bh[j], bl[j]);
+      mma3<BK / 8>(sc, ah, al, bh, bl);
     }
+
+    // Online softmax on the fragments: element e of tile j is row
+    // g + 8 (e >> 1), key 8 j + 2 t + (e & 1).  A tile that every row sees
+    // whole skips the mask.
+    const bool whole = k0 + BK <= S && (!causal || q0 >= k0 + BK - 1) &&
+                       (window <= 0 || q0 + BQ - 1 - k0 < window);
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int r = ty + 16 * i, kc = tx + 16 * j;
-        const int qp = q0 + r, kp = k0 + kc;
-        bool live = kp < S;
-        if (causal) live = live && qp >= kp;
-        if (window > 0) live = live && qp - kp < window;
-        sP[r * LDP + kc] = live ? sc[i][j] * scale : NEG_INF;
+      for (int e = 0; e < 4; ++e) {
+        const int qp = q0 + r0 + g + 8 * (e >> 1);
+        const int kp = k0 + 8 * j + 2 * t + (e & 1);
+        bool live = whole || kp < S;
+        if (!whole && causal) live = live && qp >= kp;
+        if (!whole && window > 0) live = live && qp - kp < window;
+        const float s = live ? sc[j][e] * scale : NEG_INF;
+        sc[j][e] = s;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s);
       }
-    __syncthreads();
-
-    // Online softmax: warp w owns rows 8 w .. 8 w + 7, one key per lane.
+    float alpha[2];
 #pragma unroll
-    for (int rr = 0; rr < BQ / NW; ++rr) {
-      const int r = warp * (BQ / NW) + rr;
-      const float s = sP[r * LDP + lane];
-      const float m_prev = sM[r];
-      const float m_new = fmaxf(m_prev, warp_max(s));
-      const float p = expf(s - m_new);
-      const float l_tile = warp_sum(p);
-      sP[r * LDP + lane] = p;
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        sA[r] = alpha;
-        sL[r] = sL[r] * alpha + l_tile;
-        sM[r] = m_new;
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      alpha[i] = expf(m[i] - mx[i]);
+      m[i] = mx[i];
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(sc[j][e] - m[e >> 1]);
+        sc[j][e] = p;
+        l[e >> 1] += p;
       }
+#pragma unroll
+    for (int n = 0; n < DPM / 8; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
     }
+
+    cp_async_wait<0>();                 // this thread's pieces of V(kt)
+    __syncthreads();                    // every warp is done with K(kt)
+    if (kt + 1 < kt_end) {
+      copy_tile(sK, kb, kss, k0 + BK, BK, S, lds, pieces);
+      cp_async_commit();
+    }
+    split_tile(sV, sVl, BK, lds, pieces);
     __syncthreads();
 
-    // acc = acc * alpha + P V: thread owns rows ty + 16 i and head-dim
-    // columns 4 tx + 64 jj .. + 3.
+    // acc += P V: P's A fragments are S's accumulator fragments.  Eight
+    // head-dim tiles at a time.
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = sA[ty + 16 * i];
+    for (int j = 0; j < BK / 8; ++j) {
+      uint32_t ph[4], pl[4];
+      frag_acc(sc[j], ph, pl);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) acc[i][e] *= alpha;
-    }
-    for (int kk = 0; kk < BK; kk += 4) {
-      float4 p[4];
+      for (int n0 = 0; n0 < DPM / 8; n0 += 8) {
+        uint32_t bh[8][2], bl[8][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        p[i] = *reinterpret_cast<const float4*>(&sP[(ty + 16 * i) * LDP + kk]);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float4 w[2];
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int c = 4 * tx + 64 * jj;
-          w[jj] = c < D ? *reinterpret_cast<const float4*>(
-                              &sV[(kk + u) * ld + c])
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float pu = comp(p[i], u);
-#pragma unroll
-          for (int jj = 0; jj < 2; ++jj) {
-            acc[i][4 * jj + 0] = fmaf(pu, w[jj].x, acc[i][4 * jj + 0]);
-            acc[i][4 * jj + 1] = fmaf(pu, w[jj].y, acc[i][4 * jj + 1]);
-            acc[i][4 * jj + 2] = fmaf(pu, w[jj].z, acc[i][4 * jj + 2]);
-            acc[i][4 * jj + 3] = fmaf(pu, w[jj].w, acc[i][4 * jj + 3]);
-          }
-        }
+        for (int n = 0; n < 8; ++n)
+          frag_b_col(sV, sVl, L, 8 * j, n0 + n, lds, bh[n], bl[n]);
+        mma3<8>(acc + n0, ph, pl, bh, bl);
       }
     }
   }
-  __syncthreads();  // sL is final (also when no tile was live)
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const int qp = q0 + r;
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] = fmaxf(l[i], 1e-30f);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = q0 + r0 + g + 8 * i;
     if (qp >= S) continue;
-    const float l = fmaxf(sL[r], 1e-30f);
-    T* orow = ob + (long long)qp * oss;
+    float* orow = ob + (long long)qp * oss;
 #pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const int c = 4 * tx + 64 * jj;
-      if (c >= D) continue;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) store(orow + c + e, acc[i][4 * jj + e] / l);
+    for (int n = 0; n < DPM / 8; ++n) {
+      const int c = 8 * n + 2 * t;
+      if (c < D)   // D % 4 == 0: c + 1 < D too
+        *reinterpret_cast<float2*>(orow + c) =
+            make_float2(acc[n][2 * i] / l[i], acc[n][2 * i + 1] / l[i]);
     }
+    if (LSE && t == 0)   // lse is [B, Hq, S], contiguous
+      lse[((long long)b * gridDim.y + h) * S + qp] = m[i] + logf(l[i]);
   }
-  if (LSE && tid < BQ && q0 + tid < S)   // lse is [B, Hq, S], contiguous
-    lse[((long long)b * gridDim.y + h) * S + q0 + tid] =
-        sM[tid] + logf(fmaxf(sL[tid], 1e-30f));
 }
 
 int smem_bytes(int D) {
-  return ((BQ + 2 * BK) * (D + 4) + BQ * LDP + 3 * BQ) * (int)sizeof(float);
+  const int lds = D <= 64 ? 64 : 128;     // the kernel's DPM
+  return (2 * BQ + 4 * BK) * lds * (int)sizeof(float);
 }
 
-template <typename T, bool LSE>
+// 16-byte copies need 16-byte aligned bases and strides that are multiples
+// of 4 elements (a stride of an extent-1 dimension is never used).
+bool copies16(const void* p, const long long* st, int B, int H, int S) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 &&
+         (B == 1 || st[0] % 4 == 0) && (H == 1 || st[1] % 4 == 0) &&
+         (S == 1 || st[2] % 4 == 0);
+}
+
+template <bool LSE>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int Hq, int Hkv, int S, int D, const long long* st,
            int causal, int window, float scale, cudaStream_t stream) {
@@ -273,17 +310,20 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
       S <= 0 || B <= 0)
     return (int)cudaErrorInvalidValue;
   const int smem = smem_bytes(D);
+  const int vec = copies16(q, st, B, Hq, S) && copies16(k, st + 3, B, Hkv, S) &&
+                  copies16(v, st + 6, B, Hkv, S);
+  auto kernel = D <= 64 ? flash_fwd<64, LSE> : flash_fwd<128, LSE>;
   // Above 48 KB a kernel must opt in to dynamic shared memory.  The opt-in
   // is per device, so it is made on every call (it costs microseconds).
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd<T, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + BQ - 1) / BQ, Hq, B);
-  flash_fwd<T, LSE><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, Hq / Hkv, S, D, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
-      st[11], causal, window, scale);
+  kernel<<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Hq / Hkv, S,
+      D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
+      st[10], st[11], causal, window, scale, vec);
   return (int)cudaGetLastError();
 }
 
@@ -298,9 +338,8 @@ int odin_flash_attention_fwd(const void* q, const void* k, const void* v,
                              void* o, int B, int Hq, int Hkv, int S, int D,
                              const long long* strides, int causal,
                              int window, float scale, void* stream) {
-  return launch<float, false>(q, k, v, o, nullptr, B, Hq, Hkv, S, D, strides,
-                              causal, window, scale,
-                              static_cast<cudaStream_t>(stream));
+  return launch<false>(q, k, v, o, nullptr, B, Hq, Hkv, S, D, strides, causal,
+                       window, scale, static_cast<cudaStream_t>(stream));
 }
 
 // The same, and each row's log-sum-exp into lse, fp32 [B, Hq, S]
@@ -310,10 +349,13 @@ int odin_flash_attention_fwd_lse(const void* q, const void* k, const void* v,
                                  int S, int D, const long long* strides,
                                  int causal, int window, float scale,
                                  void* stream) {
-  return launch<float, true>(q, k, v, o, static_cast<float*>(lse), B, Hq,
-                             Hkv, S, D, strides, causal, window, scale,
-                             static_cast<cudaStream_t>(stream));
+  return launch<true>(q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv, S, D,
+                      strides, causal, window, scale,
+                      static_cast<cudaStream_t>(stream));
 }
+
+// Dynamic shared memory of a launch at head dim D.
+int odin_flash_attention_smem_bytes(int D) { return smem_bytes(D); }
 
 const char* odin_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -6,8 +6,9 @@
 // (qp - kp < window) / bidirectional masks, KV tiles that no row of a
 // block sees skipped,
 // GQA by kv_head = q_head / group, masked scores set to -1e30 and the
-// normaliser floored at 1e-30.  fp32 inputs stay on the CUDA-core kernel of
-// flash_attention.cu (TF32 cannot hold the fp32 limit).
+// normaliser floored at 1e-30.  fp32 inputs go to flash_attention.cu, whose
+// products are TF32 split three ways (one TF32 product cannot hold the fp32
+// limit).
 //
 // What bounds it on an H100: at the main path's S the two matrix products
 // (2 * B * Hq * S^2 * D operations when causal), which only the tensor cores

@@ -11,48 +11,93 @@
 //
 //   delta = rowsum(dO o O)                          (launch 1)
 //   dS    = P o (dO V^T - delta)
-//   dV    = P^T dO,  dK = scale dS^T Q              (launches 2, 2b)
-//   dQ    = scale dS K                              (launch 3)
+//   dV    = P^T dO,  dK = scale dS^T Q              (launch 2; 2b)
+//   dQ    = scale dS K                              (launch 2)
 //
-// Launch 2 runs one block per (32-key tile, query head, batch): it loops
-// over the query tiles that see its keys and keeps that head's share of dK
-// and dV in registers.  Under GQA (group > 1) each block writes its share
-// to a scratch [group, B, Hkv, S, D] and launch 2b adds the group's shares
-// in head order; no atomics, so the result is deterministic.  (A block per
-// kv head that looped over the group, the first design, had B x Hkv x S/32
-// blocks -- 64 at qwen2-0.5b's heads over 1024 tokens, under one per SM --
-// and took 2.6x as long there.)  Launch 3 runs one block per (64-row query
-// tile, query head, batch) and loops over the live key tiles, as the
-// forward does.  Masks are the forward's (causal, qp - kp < window,
-// bidirectional), with the same tiles culled.
+// Launch 2 holds two kinds of block, one template (x_tile).  A block holds
+// a fixed tile X of 64 rows, 16 a warp, and streams tiles Y of 32 rows
+// past it:
+//
+//   dK/dV blocks: X = K, V of 64 keys; Y = Q, dO of 32 queries; they
+//     compute S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO and
+//     dK += dS^T Q, and keep dK and dV in mma fragments;
+//   dQ blocks: X = Q, dO of 64 queries; Y = K, V of 32 keys; S = Q K^T,
+//     dP = dO V^T, then dQ += dS K (S and dP recomputed rather than dQ
+//     summed across blocks).
+//
+// The two kinds share no output, so they run side by side in one launch,
+// block 2i a dK/dV block and 2i + 1 a dQ block, the heaviest tiles of each
+// (key tile 0, the last query tile, under a causal mask) first: the light
+// blocks fill the card behind the heavy ones, which as two launches each set
+// their launch's time alone. One block per (X tile, query head, batch) and
+// kind. Under GQA (group > 1) each dK/dV block writes its head's share of dK
+// and dV to a scratch [group, B, Hkv, S, D], and launch 2b adds the group's
+// shares in head order; no atomics, so two calls give the same bits. Masks
+// are the forward's (causal, qp - kp < window, bidirectional); only the Y
+// tiles the mask keeps are visited.  Launch 1 takes 8 lanes per row, with
+// 16-byte loads where the rows allow them.
 //
 // What bounds it on an H100: operations.  It needs five products of
-// pairs x D (S, dP, dV, dK, dQ; 2 * 5 * B * Hq * pairs * D operations) and
-// executes seven (launch 3 recomputes S and dP rather than sum dQ across
-// blocks), tile-granular, on the fp32 CUDA cores (67 TFLOP/s): TF32, the
-// only tensor-core type that takes fp32 operands, keeps ~3 digits, and the
-// JAX package's fp32 limit (2e-5) rules it out, as in the forward.  Bytes
-// (q, k, v, o, dO, lse read once, dq, dk, dv written once) are a small
-// share at S >= 256.  Simple and right first: register-tiled as the
-// forward (4 x 2 scores and 4 x 8 or 2 x 8 x 2 accumulators a thread,
-// float4 shared-memory reads), no tensor cores.
+// pairs x D (2 * 5 * B * Hq * pairs * D operations) and executes seven,
+// tile-granular, over D padded to the template's 64 or 128 columns.  All
+// of them run on the tensor cores, mma.sync m16n8k8 with TF32 operands and
+// fp32 accumulators, in the 3xTF32 split of the forward (x = hi + lo, both
+// TF32 by cvt.rna; a product is lo.hi + hi.lo + hi.hi, small terms first):
+// one TF32 product keeps 11 bits and misses the fp32 limits, the split
+// carries about 22.  Three TF32 products bound the fp32-exact work at about
+// 165 TFLOP/s, against 67 on the CUDA cores; mma.sync itself reaches about
+// 300 of the 495 TFLOP/s of TF32 on an NVIDIA H100 80GB HBM3 at 700 W
+// (tools/k1_fp32_variants.py --mma-rate), so about 100 TFLOP/s of fp32
+// products is this design's ceiling.
+//
+// Tiles: X and Y land by 16-byte cp.async copies, rows past S zero-filled
+// and columns past D zero, so every product runs over all 64 or 128
+// columns with no test per tile; the thread that copied a piece splits it
+// once it lands, hi in place and lo into the tile's lo buffer.  A Y tile
+// takes two block barriers: one before its copies (the last tile's products
+// are done), one after its split.  As in the forward, the k index of every
+// product is permuted so that slot t of a thread's pair is column 2t and
+// slot t + 4 column 2t + 1: A fragments of X and B fragments of Y^T are
+// adjacent pairs of a shared row, and the accumulator fragments of S^T / S
+// and of dS are already the A fragments of the second products, which take
+// Y's columns as B (two scalar loads).  The shared tiles' XOR swizzle keeps
+// both kinds of load free of bank conflicts, and each lane's swizzled
+// offsets are computed once (Lanes, in tf32_mma.cuh with the rest of the
+// 3xTF32 machinery), so every fragment load is a register plus an
+// immediate.
+//
+// Measured (chip_smoke.py on the same card): 0.172 ms at q [8, 14, 256,
+// 64], k/v [8, 2, 256, 64], causal (autograd's backward of fp32
+// scaled_dot_product_attention: 0.227 ms), 0.303 ms at [1, 14, 1024, 64]
+// (0.405 ms); about 70 TFLOP/s of TF32 products, a quarter of mma.sync's
+// rate.  ptxas: 213 registers at width 64, no spills, 96 KB of dynamic
+// shared memory (two blocks an SM); 255 registers and about 100-200 B of
+// spills at 128.
+//
+// Not taken: rounding to TF32 by (bits + 0x1000) & ~0x1fff, two integer
+// instructions where ptxas lowers cvt.rna.tf32.f32 to four with a test for
+// inf and NaN, ran 4-5% faster on the same card (tools/k1_fp32_variants.py)
+// but turns CUDA's canonical NaN 0x7fffffff into -0.
 //
 // Layout: every tensor [B, H, S, D] given by element strides (batch, head,
 // sequence; the head-dim stride must be 1), so the model's [B, S, H, D]
 // views are read and written in place; lse and the delta scratch are fp32
 // [B, Hq, S] contiguous, the shares of dK and dV fp32 [group, B, Hkv, S, D]
-// contiguous (scratch the wrapper allocates: twice q's size).  Any S (the ragged last tile is masked),
-// D <= 128 with D % 4 == 0, fp32 inputs and accumulation.
+// contiguous (scratch the wrapper allocates: twice q's size).  Any S (the
+// ragged last tile is masked), D <= 128 with D % 4 == 0, fp32 inputs and
+// accumulation.  Strides that are not multiples of 4 elements, or bases not
+// 16-byte aligned, take 4-byte copies.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;          // query rows per tile
-constexpr int BK = 32;          // keys per tile
-constexpr int NT = 256;         // threads per block (8 warps)
-constexpr int NW = NT / 32;
-constexpr int LDP = BK + 4;     // row stride of the P and dS tiles
+constexpr int BX = 64;          // rows of the fixed tiles (16 a warp)
+constexpr int BY = 32;          // rows of the streamed tiles
+constexpr int DELTA_ROWS = 32;  // rows per block of launch 1
 constexpr int MAX_D = 128;
 
 struct View {
@@ -63,257 +108,308 @@ struct Views {
   View q, k, v, o, dout, dq, dk, dv;
 };
 
-__device__ __forceinline__ float warp_sum(float x) {
+// a1 = X1 Y1^T and a2 = X2 Y2^T for the warp's 16 rows of X (from row R)
+// and BY rows of Y, together: eight independent accumulators (each product
+// alone has four, and the backward ran 1.03-1.07x slower so,
+// tools/k1_fp32_variants.py).
+template <int DPM>
+__device__ __forceinline__ void product_xyt(
+    float (&a1)[BY / 8][4], float (&a2)[BY / 8][4], const float* x1h,
+    const float* x1l, const float* y1h, const float* y1l, const float* x2h,
+    const float* x2l, const float* y2h, const float* y2l, const Lanes& L,
+    int R) {
+  constexpr int lds = DPM, N = BY / 8;
+  float acc[2 * N][4];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Rows [r0, r0 + R) of one head into a shared tile with row stride ld;
-// rows at or beyond S are zero.
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          long long ss, int r0, int R, int S,
-                                          int D, int ld) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < R; r += NW) {
-    const int row = r0 + r;
-    const float* s = src + (long long)row * ss;
-    for (int c = lane; c < D; c += 32) dst[r * ld + c] = row < S ? s[c] : 0.f;
-  }
-}
-
-__device__ __forceinline__ bool live(int qp, int kp, int S, int causal,
-                                     int window) {
-  bool ok = qp < S && kp < S;
-  if (causal) ok = ok && qp >= kp;
-  if (window > 0) ok = ok && qp - kp < window;
-  return ok;
-}
-
-// The row statistics of a query tile: lse and delta into shared memory.
-__device__ __forceinline__ void load_rows(float* sL, float* sD,
-                                          const float* lse,
-                                          const float* delta, long long row0,
-                                          int q0, int S) {
-  const int t = threadIdx.x;
-  if (t < BQ) {
-    const bool in = q0 + t < S;
-    sL[t] = in ? lse[row0 + q0 + t] : 0.f;
-    sD[t] = in ? delta[row0 + q0 + t] : 0.f;
-  }
-}
-
-// S = Q K^T and dP = dO V^T for thread (ty, tx)'s rows ty + 16 i and keys
-// tx + 16 j, then P = exp(S scale - lse) (0 where masked) and
-// dS = P (dP - delta).
-__device__ __forceinline__ void scores(const float* sQ, const float* sdO,
-                                       const float* sK, const float* sV,
-                                       const float* sL, const float* sD,
-                                       int D, int ld, int q0, int k0, int S,
-                                       int causal, int window, float scale,
-                                       float p[4][2], float ds[4][2]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float sc[4][2], dp[4][2];
+  for (int j = 0; j < 2 * N; ++j)
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) sc[i][j] = dp[i][j] = 0.f;
-  for (int d = 0; d < D; d += 4) {
-    float4 a[4], e[4], c[2], w[2];
+  for (int ks = 0; ks < DPM / 8; ++ks) {
+    uint32_t ah[2][4], al[2][4], bh[2 * N][2], bl[2 * N][2];
+    frag_a(x1h, x1l, L, R, ks, lds, ah[0], al[0]);
+    frag_a(x2h, x2l, L, R, ks, lds, ah[1], al[1]);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = *reinterpret_cast<const float4*>(&sQ[(ty + 16 * i) * ld + d]);
-      e[i] = *reinterpret_cast<const float4*>(&sdO[(ty + 16 * i) * ld + d]);
+    for (int j = 0; j < N; ++j) {
+      frag_b_row(y1h, y1l, L, 8 * j, ks, lds, bh[j], bl[j]);
+      frag_b_row(y2h, y2l, L, 8 * j, ks, lds, bh[N + j], bl[N + j]);
     }
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      c[j] = *reinterpret_cast<const float4*>(&sK[(tx + 16 * j) * ld + d]);
-      w[j] = *reinterpret_cast<const float4*>(&sV[(tx + 16 * j) * ld + d]);
-    }
+    for (int j = 0; j < 2 * N; ++j) mma_tf32(acc[j], al[j / N], bh[j]);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 2 * N; ++j) mma_tf32(acc[j], ah[j / N], bl[j]);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float s = sc[i][j], t = dp[i][j];
-        s = fmaf(a[i].x, c[j].x, s);
-        s = fmaf(a[i].y, c[j].y, s);
-        s = fmaf(a[i].z, c[j].z, s);
-        s = fmaf(a[i].w, c[j].w, s);
-        t = fmaf(e[i].x, w[j].x, t);
-        t = fmaf(e[i].y, w[j].y, t);
-        t = fmaf(e[i].z, w[j].z, t);
-        t = fmaf(e[i].w, w[j].w, t);
-        sc[i][j] = s;
-        dp[i][j] = t;
-      }
+    for (int j = 0; j < 2 * N; ++j) mma_tf32(acc[j], ah[j / N], bh[j]);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < N; ++j)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int r = ty + 16 * i;
-      const float pr = live(q0 + r, k0 + tx + 16 * j, S, causal, window)
-                           ? expf(sc[i][j] * scale - sL[r])
-                           : 0.f;
-      p[i][j] = pr;
-      ds[i][j] = pr * (dp[i][j] - sD[r]);
+    for (int e = 0; e < 4; ++e) {
+      a1[j][e] = acc[j][e];
+      a2[j][e] = acc[N + j][e];
     }
 }
 
-// Launch 1: delta = rowsum(dO o O), one warp per row of [B, Hq, S].
-__global__ void __launch_bounds__(NT)
+// out += A Y, A the warp's 16 x BY accumulator tile, Y [BY, DPM] split;
+// eight head-dim tiles at a time.
+template <int DPM>
+__device__ __forceinline__ void product_ay(float (&out)[DPM / 8][4],
+                                           const float (&a)[BY / 8][4],
+                                           const float* yh, const float* yl,
+                                           const Lanes& L) {
+  constexpr int lds = DPM;
+#pragma unroll
+  for (int j = 0; j < BY / 8; ++j) {
+    uint32_t ah[4], al[4];
+    frag_acc(a[j], ah, al);
+#pragma unroll
+    for (int n0 = 0; n0 < DPM / 8; n0 += 8) {
+      uint32_t bh[8][2], bl[8][2];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        frag_b_col(yh, yl, L, 8 * j, n0 + n, lds, bh[n], bl[n]);
+      mma3<8>(out + n0, ah, al, bh, bl);
+    }
+  }
+}
+
+// Launch 1: delta = rowsum(dO o O), 8 lanes per row of [B, Hq, S], with
+// 16-byte loads where the rows allow them (vec).
+__global__ void __launch_bounds__(DELTA_ROWS * 8)
 bwd_delta(const float* __restrict__ o, const float* __restrict__ dout,
           float* __restrict__ delta, int Hq, int S, int D, Views st,
-          long long rows) {
-  const long long row = (long long)blockIdx.x * NW + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const int i = (int)(row % S);
-  const long long bh = row / S;
-  const int h = (int)(bh % Hq), b = (int)(bh / Hq);
-  const float* orow = o + b * st.o.b + h * st.o.h + i * st.o.s;
-  const float* drow = dout + b * st.dout.b + h * st.dout.h + i * st.dout.s;
+          long long rows, int vec) {
+  const long long row =
+      (long long)blockIdx.x * DELTA_ROWS + (threadIdx.x >> 3);
+  const int l = threadIdx.x & 7;
   float acc = 0.f;
-  for (int c = lane; c < D; c += 32) acc = fmaf(orow[c], drow[c], acc);
-  acc = warp_sum(acc);
-  if (lane == 0) delta[row] = acc;
+  if (row < rows) {
+    const int i = (int)(row % S);
+    const long long bh = row / S;
+    const int h = (int)(bh % Hq), b = (int)(bh / Hq);
+    const float* orow = o + b * st.o.b + h * st.o.h + i * st.o.s;
+    const float* drow = dout + b * st.dout.b + h * st.dout.h + i * st.dout.s;
+    if (vec) {
+      for (int c = 4 * l; c < D; c += 32) {
+        const float4 x = *reinterpret_cast<const float4*>(orow + c);
+        const float4 y = *reinterpret_cast<const float4*>(drow + c);
+        acc = fmaf(x.x, y.x, acc);
+        acc = fmaf(x.y, y.y, acc);
+        acc = fmaf(x.z, y.z, acc);
+        acc = fmaf(x.w, y.w, acc);
+      }
+    } else {
+      for (int c = l; c < D; c += 8) acc = fmaf(orow[c], drow[c], acc);
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 8; off <<= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (l == 0 && row < rows) delta[row] = acc;
 }
 
-// Launch 2: one query head's share of dK and dV of one 32-key tile: into
-// dk and dv when group == 1, else into the scratch pdk, pdv.
-__global__ void __launch_bounds__(NT)
-bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
-        const float* __restrict__ v, const float* __restrict__ dout,
-        const float* __restrict__ lse, const float* __restrict__ delta,
-        float* __restrict__ dk, float* __restrict__ dv,
-        float* __restrict__ pdk, float* __restrict__ pdv, int group, int S,
-        int D, Views st, int causal, int window, float scale) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int ld = D + 4;  // D % 4 == 0, so every tile row is 16 B aligned
-  float* sK = smem;             // [BK][ld]
-  float* sV = sK + BK * ld;     // [BK][ld]
-  float* sQ = sV + BK * ld;     // [BQ][ld]
-  float* sdO = sQ + BQ * ld;    // [BQ][ld]
-  float* sP = sdO + BQ * ld;    // [BQ][LDP] probabilities
-  float* sS = sP + BQ * LDP;    // [BQ][LDP] dS
-  float* sL = sS + BQ * LDP;    // [BQ] lse
-  float* sD = sL + BQ;          // [BQ] delta
+// One X tile's work: its dK and dV (DKV) or its dQ; see the header.
+template <int DPM, bool DKV>
+__device__ __forceinline__ void x_tile(
+    float* smem, int xt, const float* __restrict__ q,
+    const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ out1,
+    float* __restrict__ out2, float* __restrict__ pdk,
+    float* __restrict__ pdv, int group, int S, int D, const Views& st,
+    int causal, int window, float scale, int vec) {
+  constexpr int lds = DPM;              // row stride of every tile
+  float* sX1 = smem;                    // [BX] rows each, swizzled
+  float* sX1l = sX1 + BX * lds;
+  float* sX2 = sX1l + BX * lds;
+  float* sX2l = sX2 + BX * lds;
+  float* sY1 = sX2l + BX * lds;         // [BY] rows each
+  float* sY1l = sY1 + BY * lds;
+  float* sY2 = sY1l + BY * lds;
+  float* sY2l = sY2 + BY * lds;
+  float* sL = sY2l + BY * lds;          // [BY] lse of Y's queries (DKV)
+  float* sD = sL + BY;                  // [BY] delta
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int k0 = blockIdx.x * BK;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const Lanes L(lds);
+  const int g = L.g, t = L.t;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / group, g = h % group;
   const int Hq = gridDim.y, Hkv = Hq / group;
-
-  load_tile(sK, k + b * st.k.b + kvh * st.k.h, st.k.s, k0, BK, S, D, ld);
-  load_tile(sV, v + b * st.v.b + kvh * st.v.h, st.v.s, k0, BK, S, D, ld);
-
-  // The query tiles that see this key tile.
-  const int nq = (S + BQ - 1) / BQ;
-  const int k_last = min(k0 + BK, S) - 1;
-  const int qt_begin = causal ? k0 / BQ : 0;
-  const int qt_end =
-      window > 0 ? min(nq, (k_last + window - 1) / BQ + 1) : nq;
-
-  // Thread owns keys ty + 16 jk and head-dim columns 4 tx + 64 jj .. + 3.
-  float akk[2][8], avv[2][8];
-#pragma unroll
-  for (int jk = 0; jk < 2; ++jk)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) akk[jk][e] = avv[jk][e] = 0.f;
+  const int kvh = h / group;
+  const int r0 = warp * 16;
+  const Pieces pieces(D, vec);
+  const int x0 = xt * BX;
+  const long long row0 = ((long long)b * Hq + h) * S;  // of lse and delta
 
   const float* qb = q + b * st.q.b + h * st.q.h;
   const float* db = dout + b * st.dout.b + h * st.dout.h;
-  const long long row0 = ((long long)b * Hq + h) * S;
-  for (int qt = qt_begin; qt < qt_end; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();  // the previous tile is done with sQ .. sD
-    load_tile(sQ, qb, st.q.s, q0, BQ, S, D, ld);
-    load_tile(sdO, db, st.dout.s, q0, BQ, S, D, ld);
-    load_rows(sL, sD, lse, delta, row0, q0, S);
-    __syncthreads();
+  const float* kb = k + b * st.k.b + kvh * st.k.h;
+  const float* vb = v + b * st.v.b + kvh * st.v.h;
+  const float *x1 = DKV ? kb : qb, *x2 = DKV ? vb : db;
+  const float *y1 = DKV ? qb : kb, *y2 = DKV ? db : vb;
+  const long long x1s = DKV ? st.k.s : st.q.s, x2s = DKV ? st.v.s : st.dout.s;
+  const long long y1s = DKV ? st.q.s : st.k.s, y2s = DKV ? st.dout.s : st.v.s;
 
-    float p[4][2], ds[4][2];
-    scores(sQ, sdO, sK, sV, sL, sD, D, ld, q0, k0, S, causal, window,
-           scale, p, ds);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        sP[(ty + 16 * i) * LDP + tx + 16 * j] = p[i][j];
-        sS[(ty + 16 * i) * LDP + tx + 16 * j] = ds[i][j];
-      }
-    __syncthreads();
+  // Columns [D, DPM) are never copied: zero them in every tile (the
+  // products run over all DPM columns).
+  if (D < DPM) {
+    const int w = DPM - D;
+    for (int e = tid; e < (4 * BX + 4 * BY) * w; e += NT)
+      smem[at(e / w, D + e % w, lds)] = 0.f;
+  }
 
-    // dV += P^T dO and dK += dS^T Q over the tile's 64 rows.
-    for (int r = 0; r < BQ; ++r) {
-      float pk[2], sk[2];
+  // The Y tiles that the mask keeps.
+  const int ny = (S + BY - 1) / BY;
+  const int x_last = min(x0 + BX, S) - 1;
+  int yt_begin, yt_end;
+  if (DKV) {                            // the query tiles that see these keys
+    yt_begin = causal ? x0 / BY : 0;
+    yt_end = window > 0 ? min(ny, (x_last + window - 1) / BY + 1) : ny;
+  } else {                              // the key tiles these queries see
+    yt_end = causal ? x_last / BY + 1 : ny;
+    yt_begin = window > 0 ? max(x0 - window + 1, 0) / BY : 0;
+  }
+
+  copy_tile(sX1, x1, x1s, x0, BX, S, lds, pieces);
+  copy_tile(sX2, x2, x2s, x0, BX, S, lds, pieces);
+  cp_async_commit();
+  cp_async_wait<0>();
+  split_tile(sX1, sX1l, BX, lds, pieces);
+  split_tile(sX2, sX2l, BX, lds, pieces);
+
+  // dQ: the row statistics of the warp's two rows, in registers.
+  float rl[2] = {0.f, 0.f}, rd[2] = {0.f, 0.f};
+  if (!DKV) {
 #pragma unroll
-      for (int jk = 0; jk < 2; ++jk) {
-        pk[jk] = sP[r * LDP + ty + 16 * jk];
-        sk[jk] = sS[r * LDP + ty + 16 * jk];
-      }
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int c = 4 * tx + 64 * jj;
-        if (c >= D) continue;
-        const float4 o4 = *reinterpret_cast<const float4*>(&sdO[r * ld + c]);
-        const float4 q4 = *reinterpret_cast<const float4*>(&sQ[r * ld + c]);
-#pragma unroll
-        for (int jk = 0; jk < 2; ++jk) {
-          avv[jk][4 * jj + 0] = fmaf(pk[jk], o4.x, avv[jk][4 * jj + 0]);
-          avv[jk][4 * jj + 1] = fmaf(pk[jk], o4.y, avv[jk][4 * jj + 1]);
-          avv[jk][4 * jj + 2] = fmaf(pk[jk], o4.z, avv[jk][4 * jj + 2]);
-          avv[jk][4 * jj + 3] = fmaf(pk[jk], o4.w, avv[jk][4 * jj + 3]);
-          akk[jk][4 * jj + 0] = fmaf(sk[jk], q4.x, akk[jk][4 * jj + 0]);
-          akk[jk][4 * jj + 1] = fmaf(sk[jk], q4.y, akk[jk][4 * jj + 1]);
-          akk[jk][4 * jj + 2] = fmaf(sk[jk], q4.z, akk[jk][4 * jj + 2]);
-          akk[jk][4 * jj + 3] = fmaf(sk[jk], q4.w, akk[jk][4 * jj + 3]);
-        }
+    for (int i = 0; i < 2; ++i) {
+      const int x = x0 + r0 + g + 8 * i;
+      if (x < S) {
+        rl[i] = lse[row0 + x];
+        rd[i] = delta[row0 + x];
       }
     }
   }
 
-  float *dkb, *dvb;
-  long long ssk, ssv;
-  if (group == 1) {
-    dkb = dk + b * st.dk.b + kvh * st.dk.h;
-    dvb = dv + b * st.dv.b + kvh * st.dv.h;
-    ssk = st.dk.s;
-    ssv = st.dv.s;
-  } else {  // scratch [group, B, Hkv, S, D], contiguous
-    const long long off = (((long long)g * gridDim.z + b) * Hkv + kvh) * S * D;
-    dkb = pdk + off;
-    dvb = pdv + off;
-    ssk = ssv = D;
-  }
+  float o1[DPM / 8][4], o2[DPM / 8][4];   // o2: dV (launch 2 only)
 #pragma unroll
-  for (int jk = 0; jk < 2; ++jk) {
-    const int kp = k0 + ty + 16 * jk;
-    if (kp >= S) continue;
+  for (int n = 0; n < DPM / 8; ++n)
 #pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const int c = 4 * tx + 64 * jj;
-      if (c >= D) continue;
+    for (int e = 0; e < 4; ++e) o1[n][e] = o2[n][e] = 0.f;
+
+  for (int yt = yt_begin; yt < yt_end; ++yt) {
+    const int y0 = yt * BY;
+    __syncthreads();                    // every warp is done with the last Y
+    copy_tile(sY1, y1, y1s, y0, BY, S, lds, pieces);
+    copy_tile(sY2, y2, y2s, y0, BY, S, lds, pieces);
+    cp_async_commit();
+    if (DKV && tid < BY) {
+      const bool in = y0 + tid < S;
+      sL[tid] = in ? lse[row0 + y0 + tid] : 0.f;
+      sD[tid] = in ? delta[row0 + y0 + tid] : 0.f;
+    }
+    cp_async_wait<0>();
+    split_tile(sY1, sY1l, BY, lds, pieces);
+    split_tile(sY2, sY2l, BY, lds, pieces);
+    __syncthreads();
+
+    float s[BY / 8][4], dp[BY / 8][4];
+    product_xyt<DPM>(s, dp, sX1, sX1l, sY1, sY1l, sX2, sX2l, sY2, sY2l, L,
+                      r0);
+
+    // P and dS on the fragments: element e of tile j is X row
+    // r0 + g + 8 (e >> 1), Y row 8 j + 2 t + (e & 1).  A pair of tiles
+    // that the mask keeps whole skips it.
+    const int q_lo = DKV ? y0 : x0, q_hi = (DKV ? y0 + BY : x0 + BX) - 1;
+    const int k_lo = DKV ? x0 : y0, k_hi = (DKV ? x0 + BX : y0 + BY) - 1;
+    const bool whole = q_hi < S && k_hi < S && (!causal || q_lo >= k_hi) &&
+                       (window <= 0 || q_hi - k_lo < window);
+#pragma unroll
+    for (int j = 0; j < BY / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        dkb[(long long)kp * ssk + c + e] = akk[jk][4 * jj + e] * scale;
-        dvb[(long long)kp * ssv + c + e] = avv[jk][4 * jj + e];
+        const int x = x0 + r0 + g + 8 * (e >> 1);
+        const int yl = 8 * j + 2 * t + (e & 1);
+        const int qp = DKV ? y0 + yl : x, kp = DKV ? x : y0 + yl;
+        bool live = whole || (qp < S && kp < S);
+        if (!whole && causal) live = live && qp >= kp;
+        if (!whole && window > 0) live = live && qp - kp < window;
+        const float ls = DKV ? sL[yl] : rl[e >> 1];
+        const float dl = DKV ? sD[yl] : rd[e >> 1];
+        const float p = live ? expf(s[j][e] * scale - ls) : 0.f;
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - dl);
       }
+
+    // dK += dS^T Q, dV += P^T dO (launch 2); dQ += dS K (launch 3).
+    product_ay<DPM>(o1, dp, sY1, sY1l, L);
+    if constexpr (DKV) product_ay<DPM>(o2, s, sY2, sY2l, L);
+  }
+
+  float *ob1, *ob2 = nullptr;
+  long long s1, s2 = 0;
+  if (!DKV) {
+    ob1 = out1 + b * st.dq.b + h * st.dq.h;
+    s1 = st.dq.s;
+  } else if (group == 1) {
+    ob1 = out1 + b * st.dk.b + kvh * st.dk.h;
+    ob2 = out2 + b * st.dv.b + kvh * st.dv.h;
+    s1 = st.dk.s;
+    s2 = st.dv.s;
+  } else {  // scratch [group, B, Hkv, S, D], contiguous
+    const long long off =
+        (((long long)(h % group) * gridDim.z + b) * Hkv + kvh) * S * D;
+    ob1 = pdk + off;
+    ob2 = pdv + off;
+    s1 = s2 = D;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int x = x0 + r0 + g + 8 * i;
+    if (x >= S) continue;
+#pragma unroll
+    for (int n = 0; n < DPM / 8; ++n) {
+      const int c = 8 * n + 2 * t;
+      if (c >= D) continue;             // D % 4 == 0: c + 1 < D too
+      *reinterpret_cast<float2*>(ob1 + (long long)x * s1 + c) =
+          make_float2(o1[n][2 * i] * scale, o1[n][2 * i + 1] * scale);
+      if constexpr (DKV)
+        *reinterpret_cast<float2*>(ob2 + (long long)x * s2 + c) =
+            make_float2(o2[n][2 * i], o2[n][2 * i + 1]);
     }
   }
+}
+
+// Launch 2: blocks 2i take key tile i (dK, dV) and blocks 2i + 1 a query
+// tile (dQ), the last first when causal, so that the heaviest tiles of both
+// kinds start first and the light ones fill the card behind them.
+template <int DPM>
+__global__ void __launch_bounds__(NT)
+bwd_tiles(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ dout,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          float* __restrict__ dq, float* __restrict__ dk,
+          float* __restrict__ dv, float* __restrict__ pdk,
+          float* __restrict__ pdv, int group, int S, int D, Views st,
+          int causal, int window, float scale, int vec) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int i = blockIdx.x >> 1, nx = gridDim.x >> 1;
+  if ((blockIdx.x & 1) == 0)
+    x_tile<DPM, true>(smem, i, q, k, v, dout, lse, delta, dk, dv, pdk, pdv,
+                      group, S, D, st, causal, window, scale, vec);
+  else
+    x_tile<DPM, false>(smem, causal ? nx - 1 - i : i, q, k, v, dout, lse,
+                       delta, dq, nullptr, nullptr, nullptr, group, S, D, st,
+                       causal, window, scale, vec);
 }
 
 // Launch 2b (group > 1): dk and dv as the sums of the group's shares, added
 // in head order; one thread per element of [B, Hkv, S, D].
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(256)
 bwd_dkv_sum(const float* __restrict__ pdk, const float* __restrict__ pdv,
             float* __restrict__ dk, float* __restrict__ dv, int group,
             int Hkv, int S, int D, Views st, long long n) {
-  const long long i = (long long)blockIdx.x * NT + threadIdx.x;
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
   if (i >= n) return;
   const int c = (int)(i % D);
   const long long row = i / D;
@@ -329,131 +425,44 @@ bwd_dkv_sum(const float* __restrict__ pdk, const float* __restrict__ pdv,
   dv[b * st.dv.b + h * st.dv.h + (long long)s * st.dv.s + c] = av;
 }
 
-// Launch 3: dQ of one 64-row query tile of one query head.
-__global__ void __launch_bounds__(NT)
-bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
-       const float* __restrict__ v, const float* __restrict__ dout,
-       const float* __restrict__ lse, const float* __restrict__ delta,
-       float* __restrict__ dq, int group, int S, int D, Views st, int causal,
-       int window, float scale) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int ld = D + 4;
-  float* sQ = smem;             // [BQ][ld]
-  float* sdO = sQ + BQ * ld;    // [BQ][ld]
-  float* sK = sdO + BQ * ld;    // [BK][ld]
-  float* sV = sK + BK * ld;     // [BK][ld]
-  float* sS = sV + BK * ld;     // [BQ][LDP] dS
-  float* sL = sS + BQ * LDP;    // [BQ] lse
-  float* sD = sL + BQ;          // [BQ] delta
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / group;
-  const float* kb = k + b * st.k.b + kvh * st.k.h;
-  const float* vb = v + b * st.v.b + kvh * st.v.h;
-
-  load_tile(sQ, q + b * st.q.b + h * st.q.h, st.q.s, q0, BQ, S, D, ld);
-  load_tile(sdO, dout + b * st.dout.b + h * st.dout.h, st.dout.s, q0, BQ, S,
-            D, ld);
-  load_rows(sL, sD, lse, delta, ((long long)b * gridDim.y + h) * S, q0, S);
-
-  // The live key tiles, as the forward culls them.
-  const int nk = (S + BK - 1) / BK;
-  const int q_last = min(q0 + BQ, S) - 1;
-  const int kt_end = causal ? q_last / BK + 1 : nk;
-  int kt_begin = 0;
-  if (window > 0) {
-    const int lo = q0 - window + 1;
-    if (lo > 0) kt_begin = lo / BK;
-  }
-
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[i][e] = 0.f;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile is done with sK, sV and sS
-    load_tile(sK, kb, st.k.s, k0, BK, S, D, ld);
-    load_tile(sV, vb, st.v.s, k0, BK, S, D, ld);
-    __syncthreads();
-
-    float p[4][2], ds[4][2];
-    scores(sQ, sdO, sK, sV, sL, sD, D, ld, q0, k0, S, causal, window, scale,
-           p, ds);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        sS[(ty + 16 * i) * LDP + tx + 16 * j] = ds[i][j];
-    __syncthreads();
-
-    // acc += dS K: rows ty + 16 i, head-dim columns 4 tx + 64 jj .. + 3.
-    for (int kk = 0; kk < BK; kk += 4) {
-      float4 s4[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        s4[i] = *reinterpret_cast<const float4*>(&sS[(ty + 16 * i) * LDP + kk]);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float4 w[2];
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int c = 4 * tx + 64 * jj;
-          w[jj] = c < D ? *reinterpret_cast<const float4*>(
-                              &sK[(kk + u) * ld + c])
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float su = u == 0 ? s4[i].x
-                                  : (u == 1 ? s4[i].y
-                                            : (u == 2 ? s4[i].z : s4[i].w));
-#pragma unroll
-          for (int jj = 0; jj < 2; ++jj) {
-            acc[i][4 * jj + 0] = fmaf(su, w[jj].x, acc[i][4 * jj + 0]);
-            acc[i][4 * jj + 1] = fmaf(su, w[jj].y, acc[i][4 * jj + 1]);
-            acc[i][4 * jj + 2] = fmaf(su, w[jj].z, acc[i][4 * jj + 2]);
-            acc[i][4 * jj + 3] = fmaf(su, w[jj].w, acc[i][4 * jj + 3]);
-          }
-        }
-      }
-    }
-  }
-
-  float* dqb = dq + b * st.dq.b + h * st.dq.h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty + 16 * i;
-    if (qp >= S) continue;
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const int c = 4 * tx + 64 * jj;
-      if (c >= D) continue;
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dqb[(long long)qp * st.dq.s + c + e] = acc[i][4 * jj + e] * scale;
-    }
-  }
-}
-
-int dkv_smem_bytes(int D) {
-  return ((2 * BK + 2 * BQ) * (D + 4) + 2 * BQ * LDP + 2 * BQ) *
-         (int)sizeof(float);
-}
-
-int dq_smem_bytes(int D) {
-  return ((2 * BQ + 2 * BK) * (D + 4) + BQ * LDP + 2 * BQ) *
-         (int)sizeof(float);
+int smem_bytes(int D) {
+  const int lds = D <= 64 ? 64 : 128;
+  return ((4 * BX + 4 * BY) * lds + 2 * BY) * (int)sizeof(float);
 }
 
 View view(const long long* st, int t) { return {st[3 * t], st[3 * t + 1],
                                                 st[3 * t + 2]}; }
+
+bool copies16(const void* p, View s, int B, int H, int S) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 &&
+         (B == 1 || s.b % 4 == 0) && (H == 1 || s.h % 4 == 0) &&
+         (S == 1 || s.s % 4 == 0);
+}
+
+template <int DPM>
+int launch_tiles(const float* q, const float* k, const float* v,
+                 const float* dout, const float* lse, const float* delta,
+                 float* dq, float* dk, float* dv, float* pdk, float* pdv,
+                 int B, int Hq, int group, int S, int D, const Views& st,
+                 int causal, int window, float scale, int vec,
+                 cudaStream_t stream) {
+  const int smem = smem_bytes(D);
+  const int Hkv = Hq / group;
+  const long long n = (long long)B * Hkv * S * D;
+  // Above 48 KB a kernel must opt in to dynamic shared memory, per device,
+  // so on every call.
+  cudaError_t e = cudaFuncSetAttribute(
+      bwd_tiles<DPM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  bwd_tiles<DPM><<<dim3(2 * ((S + BX - 1) / BX), Hq, B), NT, smem, stream>>>(
+      q, k, v, dout, lse, delta, dq, dk, dv, pdk, pdv, group, S, D, st,
+      causal, window, scale, vec);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || group == 1) return (int)e;
+  bwd_dkv_sum<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      pdk, pdv, dk, dv, group, Hkv, S, D, st, n);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -486,49 +495,31 @@ int odin_flash_attention_bwd(const void* q, const void* k, const void* v,
   const float* fdo = static_cast<const float*>(dout);
   const float* flse = static_cast<const float*>(lse);
   float* fdelta = static_cast<float*>(delta);
+  const int vec = copies16(q, st.q, B, Hq, S) && copies16(k, st.k, B, Hkv, S) &&
+                  copies16(v, st.v, B, Hkv, S) &&
+                  copies16(dout, st.dout, B, Hq, S);
 
   const long long rows = (long long)B * Hq * S;
-  bwd_delta<<<(unsigned)((rows + NW - 1) / NW), NT, 0, stream>>>(
-      static_cast<const float*>(o), fdo, fdelta, Hq, S, D, st, rows);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-
-  // Above 48 KB a kernel must opt in to dynamic shared memory, per device,
-  // so on every call.
-  const int smem_kv = dkv_smem_bytes(D), smem_q = dq_smem_bytes(D);
-  e = cudaFuncSetAttribute(bwd_dkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem_kv);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(bwd_dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem_q);
+  const int vec_delta = copies16(o, st.o, B, Hq, S) &&
+                        copies16(dout, st.dout, B, Hq, S);
+  bwd_delta<<<(unsigned)((rows + DELTA_ROWS - 1) / DELTA_ROWS),
+              DELTA_ROWS * 8, 0, stream>>>(static_cast<const float*>(o), fdo,
+                                           fdelta, Hq, S, D, st, rows,
+                                           vec_delta);
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
   const long long n = (long long)B * Hkv * S * D;
   float* pdk = static_cast<float*>(shares);
   float* pdv = group > 1 ? pdk + group * n : nullptr;
-  bwd_dkv<<<dim3((S + BK - 1) / BK, Hq, B), NT, smem_kv, stream>>>(
-      fq, fk, fv, fdo, flse, fdelta, static_cast<float*>(dk),
-      static_cast<float*>(dv), pdk, pdv, group, S, D, st, causal, window,
-      scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  if (group > 1) {
-    bwd_dkv_sum<<<(unsigned)((n + NT - 1) / NT), NT, 0, stream>>>(
-        pdk, pdv, static_cast<float*>(dk), static_cast<float*>(dv), group,
-        Hkv, S, D, st, n);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  bwd_dq<<<dim3((S + BQ - 1) / BQ, Hq, B), NT, smem_q, stream>>>(
-      fq, fk, fv, fdo, flse, fdelta, static_cast<float*>(dq), group, S, D, st,
-      causal, window, scale);
-  return (int)cudaGetLastError();
+  auto run = D <= 64 ? launch_tiles<64> : launch_tiles<128>;
+  return run(fq, fk, fv, fdo, flse, fdelta, static_cast<float*>(dq),
+             static_cast<float*>(dk), static_cast<float*>(dv), pdk, pdv, B,
+             Hq, group, S, D, st, causal, window, scale, vec, stream);
 }
 
-// Dynamic shared memory of launch 2 (which = 0) or launch 3 (which = 1).
-int odin_flash_attention_bwd_smem_bytes(int which, int D) {
-  return which == 0 ? dkv_smem_bytes(D) : dq_smem_bytes(D);
-}
+// Dynamic shared memory of launch 2 at head dim D.
+int odin_flash_attention_bwd_smem_bytes(int D) { return smem_bytes(D); }
 
 const char* odin_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -9,11 +9,14 @@ a kernel or raise.  Two routes, by dtype:
 
 * bf16 -- ``csrc/flash_attention_bf16.cu``: both products on the tensor
   cores (``wgmma``), K/V streamed by TMA; D % 8 == 0 (TMA's stride rule);
-* fp32 -- ``csrc/flash_attention.cu``: the products on the fp32 CUDA cores
-  (TF32 cannot hold the fp32 limit); D % 4 == 0.
+* fp32 -- ``csrc/flash_attention.cu``: both products on the tensor cores
+  too (``mma.sync`` with TF32 operands), each fp32 operand split into TF32
+  hi and lo and every product run as lo.hi + hi.lo + hi.hi ("3xTF32"),
+  which carries about 22 bits where one TF32 product keeps 11 and misses
+  the fp32 limit; D % 4 == 0.
 
 ``flash_attention.launches`` counts every forward launch,
-``tensor_core_launches`` and ``cuda_core_launches`` those of each route.
+``tensor_core_launches`` (bf16) and ``fp32_launches`` those of each route.
 
 Gradients: on CUDA, fp32 inputs that require grad under grad mode go
 through :class:`_FlashAttentionFn`.  Its forward launches the fp32 kernel's
@@ -76,7 +79,7 @@ _ROUTES = {
     torch.bfloat16: ("flash_attention_bf16", "odin_flash_attention_bf16_fwd",
                      "tensor_core_launches"),
     torch.float32: ("flash_attention", "odin_flash_attention_fwd",
-                    "cuda_core_launches"),
+                    "fp32_launches"),
 }
 
 
@@ -300,6 +303,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.tensor_core_launches = 0
-flash_attention.cuda_core_launches = 0
+flash_attention.fp32_launches = 0
 flash_attention.lse_launches = 0
 flash_attention.backward_launches = 0

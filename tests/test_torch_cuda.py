@@ -18,6 +18,7 @@ from repro_torch.kernels import flash_attention as k1_lib  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
     BACKWARD_CASES,
     BACKWARD_LIMIT,
+    BACKWARD_TRAIN_CASE,
     BATCHED_MAIN_CASES,
     DECODE_CASES,
     DECODE_CORNER_CASES,
@@ -98,14 +99,14 @@ def card():
 
 def _route_counts():
     return (flash_attention.launches, flash_attention.tensor_core_launches,
-            flash_attention.cuda_core_launches)
+            flash_attention.fp32_launches)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", FLASH_CASES + RAGGED_CASES
                          + TENSOR_CORE_CASES, ids=case_id)
 def test_kernel_matches_plain_version(card, case):
-    """bf16 runs on the tensor-core kernel, fp32 on the CUDA-core one."""
+    """bf16 runs on the bf16 kernel, fp32 on the fp32 (3xTF32) one."""
     B, Hq, Hkv, S, D, causal, window, dtype = case
     q, k, v = _inputs([(B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D)], dtype)
     n, tc, cc = _route_counts()
@@ -636,6 +637,57 @@ def test_backward_kernel_matches_plain_version(card, case):
         assert g.shape == w.shape and bool(torch.isfinite(g).all())
         assert max_ratio(g, w) <= BACKWARD_LIMIT, name
         assert torch.equal(g, g2), name
+
+
+@pytest.mark.cuda
+def test_fp32_forward_and_backward_repeat_bit_for_bit(card):
+    """At the training shape the fp32 forward (both entry points) and the
+    backward give the same bits on two calls: no atomics, a fixed order of
+    the tensor-core products."""
+    B, Hq, Hkv, S, D, causal, window, dtype = BACKWARD_TRAIN_CASE
+    q, k, v, do = _inputs([(B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D),
+                           (B, Hq, S, D)], dtype, seed=15)
+    runs = []
+    for _ in range(2):
+        o, lse = k1_lib.forward_with_lse(q, k, v, causal=causal,
+                                         window=window)
+        o_plain = flash_attention(q, k, v, causal=causal, window=window)
+        runs.append((o, lse, o_plain) + k1_lib.backward(
+            q, k, v, o, lse, do, causal=causal, window=window))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,offset", [(56, 0), (20, 0), (64, 1)],
+                         ids=["D56", "D20", "D64_unaligned"])
+def test_fp32_kernels_take_padded_head_dims_in_model_layout(card, D,
+                                                            offset):
+    """Head dims that are not multiples of 8 (padded with zero columns in
+    shared memory), read in place from the model's [B, S, H, D] layout,
+    and that layout one element off 16-byte alignment (the kernels' 4-byte
+    copies): the forward within tolerance("float32"), the backward within
+    BACKWARD_LIMIT."""
+    B, Hq, Hkv, S = 2, 14, 2, 130
+    (x,) = _inputs([(B * S * (Hq + 2 * Hkv) * D + offset,)], "float32",
+                   seed=16)
+    x = x[offset:].view(B, S, Hq + 2 * Hkv, D)
+    (do,) = _inputs([(B, Hq, S, D)], "float32", seed=17)
+    q, k, v = (x[:, :, :Hq].transpose(1, 2),
+               x[:, :, Hq:Hq + Hkv].transpose(1, 2),
+               x[:, :, Hq + Hkv:].transpose(1, 2))
+    assert not q.is_contiguous()
+    assert (q.data_ptr() % 16 != 0) == bool(offset)
+    o, lse = k1_lib.forward_with_lse(q, k, v, causal=True, window=None)
+    got = k1_lib.backward(q, k, v, o, lse, do, causal=True, window=None)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, flash_attention_ref(q, k, v),
+                               **tolerance("float32"))
+    want = flash_attention_bwd_ref(q, k, v, do, causal=True, window=None)
+    for name, t, g, w in zip(("dq", "dk", "dv"), (q, k, v), got, want):
+        assert g.shape == t.shape and bool(torch.isfinite(g).all()), name
+        assert max_ratio(g, w) <= BACKWARD_LIMIT, name
 
 
 @pytest.mark.cuda

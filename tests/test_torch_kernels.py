@@ -781,3 +781,165 @@ def test_backward_cases_cover_the_training_shape_and_its_corners():
     assert any(c[6] is not None and c[6] < 32 for c in BACKWARD_CASES)
     assert any(c[3] % 32 for c in BACKWARD_CASES)              # ragged S
     assert BACKWARD_LIMIT == 1e-4
+
+
+# -- K1's fp32 route on the tensor cores: a model of its rounding ----------
+#
+# csrc/flash_attention.cu and csrc/flash_attention_bwd.cu run every product
+# with TF32 operands (mma.sync m16n8k8), each fp32 operand split into
+# hi = tf32(x) and lo = tf32(x - hi) and a product taken as lo.hi + hi.lo +
+# hi.hi over k-slices of 8 ("3xTF32").  The model below rounds as they do;
+# with one term (hi.hi, plain TF32) the forward misses the fp32 limit.
+
+TF32_FORWARD_CASES = ([c for c in FLASH_CASES + RAGGED_CASES
+                       if c[7] == "float32"] + [BACKWARD_TRAIN_CASE])
+# The training shape, and a ragged GQA case with a window (group 4).
+TF32_BACKWARD_CASES = [BACKWARD_TRAIN_CASE, RAGGED_CASES[1]]
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32 (10 explicit mantissa bits), to nearest
+    with ties away from zero (cvt.rna.tf32.f32), through an int32 view."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_matmul(a: torch.Tensor, b: torch.Tensor, terms: int,
+                  acc=None) -> torch.Tensor:
+    """``acc + a @ b`` as the kernels take it: k-slices of 8 in order, each
+    the sum of lo.hi, hi.lo and hi.hi (``terms`` 3) or of hi.hi alone
+    (``terms`` 1), added into an fp32 accumulator."""
+    out = (torch.zeros(a.shape[:-1] + b.shape[-1:]) if acc is None
+           else acc)
+    for k0 in range(0, a.shape[-1], 8):
+        x, y = a[..., k0:k0 + 8], b[..., k0:k0 + 8, :]
+        xh, yh = _tf32(x), _tf32(y)
+        if terms == 3:
+            out = out + _tf32(x - xh) @ yh
+            out = out + xh @ _tf32(y - yh)
+        out = out + xh @ yh
+    return out
+
+
+def _mask(S: int, causal: bool, window) -> torch.Tensor:
+    qp, kp = torch.arange(S)[:, None], torch.arange(S)[None, :]
+    keep = torch.ones((S, S), dtype=torch.bool)
+    if causal:
+        keep &= qp >= kp
+    if window is not None:
+        keep &= qp - kp < window
+    return keep
+
+
+def _fp32_route_forward(q, k, v, causal, window, terms: int,
+                        block_k: int = 64) -> tuple:
+    """The fp32 forward kernel's order and rounding on the CPU: 64-key
+    tiles, online softmax in fp32 (masked scores -1e30, alpha rescales),
+    S = Q K^T and P V split as the kernel splits them.  Returns (o, lse)."""
+    B, Hq, S, D = q.shape
+    group = Hq // k.shape[1]
+    kf = k.float().repeat_interleave(group, 1)
+    vf = v.float().repeat_interleave(group, 1)
+    keep = _mask(S, causal, window)
+    m = torch.full((B, Hq, S, 1), -1e30)
+    l = torch.zeros((B, Hq, S, 1))
+    acc = torch.zeros((B, Hq, S, D))
+    for k0 in range(0, S, block_k):
+        sl = slice(k0, k0 + block_k)
+        s = _split_matmul(q.float(), kf[:, :, sl].transpose(-1, -2),
+                          terms) * D ** -0.5
+        s = torch.where(keep[:, sl], s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = _split_matmul(p, vf[:, :, sl], terms, acc * alpha)
+        m = m_new
+    l = l.clamp_min(1e-30)
+    return acc / l, (m + torch.log(l))[..., 0]
+
+
+def _fp32_route_backward(q, k, v, do, causal, window, terms: int) -> tuple:
+    """The backward kernel's arithmetic on the CPU: P rebuilt from the
+    modelled forward's lse, every one of the five products split, dK and dV
+    summed over a GQA group in head order.  Returns (dq, dk, dv)."""
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    group = Hq // Hkv
+    scale = D ** -0.5
+    o, lse = _fp32_route_forward(q, k, v, causal, window, terms)
+    kf = k.float().repeat_interleave(group, 1)
+    vf = v.float().repeat_interleave(group, 1)
+    delta = (do * o).sum(-1, keepdim=True)
+    s = _split_matmul(q, kf.transpose(-1, -2), terms)
+    p = torch.where(_mask(S, causal, window),
+                    torch.exp(s * scale - lse[..., None]), torch.zeros(()))
+    ds = p * (_split_matmul(do, vf.transpose(-1, -2), terms) - delta)
+    dq = _split_matmul(ds, kf, terms) * scale
+    dk = _split_matmul(ds.transpose(-1, -2), q, terms) * scale
+    dv = _split_matmul(p.transpose(-1, -2), do, terms)
+    dk = dk.reshape(B, Hkv, group, S, D)
+    dv = dv.reshape(B, Hkv, group, S, D)
+    dk_sum, dv_sum = dk[:, :, 0], dv[:, :, 0]
+    for g in range(1, group):
+        dk_sum, dv_sum = dk_sum + dk[:, :, g], dv_sum + dv[:, :, g]
+    return dq, dk_sum, dv_sum
+
+
+def test_tf32_rounding_model():
+    """_tf32 keeps 10 explicit mantissa bits, rounds half away from zero,
+    and hi + lo of the split carries x to about 22 bits."""
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -11,
+                      1.0 + 2.0 ** -12, -(1.0 + 2.0 ** -11), 3.0e-3])
+    got = _tf32(x)
+    assert got[:4].tolist() == [1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10, 1.0]
+    assert float(got[4]) == -(1.0 + 2.0 ** -10)
+    assert bool(((got.view(torch.int32) & 0x1FFF) == 0).all())
+    r = torch.from_numpy(np.random.default_rng(20).standard_normal(
+        4096).astype(np.float32))
+    hi = _tf32(r)
+    lo = _tf32(r - hi)
+    assert float(((hi - r).abs() / r.abs()).max()) <= 2.0 ** -11
+    assert float(((hi + lo - r).abs() / r.abs()).max()) <= 2.0 ** -21
+
+
+@pytest.mark.parametrize("terms", [3, 1], ids=["3xtf32", "tf32"])
+@pytest.mark.parametrize("case", TF32_FORWARD_CASES, ids=case_id)
+def test_fp32_route_rounding_meets_fp32_limit_only_with_split(case, terms):
+    """The fp32 route's rounding against the JAX oracle: with the split
+    (three products) within tolerance("float32") on every fp32 case; with
+    one TF32 product (hi.hi) outside it."""
+    B, Hq, Hkv, S, D, causal, window, dtype = case
+    (jq, jk, jv), (q, k, v) = _inputs(B, Hq, Hkv, S, D, dtype, seed=20)
+    got, _ = _fp32_route_forward(q, k, v, causal, window, terms)
+    want = np.asarray(jax_ref.flash_attention_ref(jq, jk, jv, causal=causal,
+                                                  window=window), np.float32)
+    tol = tolerance(dtype)
+    inside = np.abs(got.numpy() - want) <= tol["atol"] + tol["rtol"] * np.abs(
+        want)
+    assert bool(inside.all()) == (terms == 3)
+
+
+@pytest.mark.parametrize("terms", [3, 1], ids=["3xtf32", "tf32"])
+@pytest.mark.parametrize("case", TF32_BACKWARD_CASES, ids=case_id)
+def test_fp32_backward_rounding_meets_backward_limit_only_with_split(case,
+                                                                     terms):
+    """dq, dk, dv with every product of the backward (and of the forward
+    that saves lse) split as the kernels split them, against jax.grad of
+    the JAX oracle: within BACKWARD_LIMIT with three products, outside it
+    with one."""
+    B, Hq, Hkv, S, D, causal, window, dtype = case
+    (jq, jk, jv), (q, k, v) = _inputs(B, Hq, Hkv, S, D, dtype, seed=21)
+    do = np.random.default_rng(22).standard_normal((B, Hq, S, D)).astype(
+        np.float32)
+
+    def objective(a, b, c):
+        out = jax_ref.flash_attention_ref(a, b, c, causal=causal,
+                                          window=window)
+        return jnp.sum(out * jnp.asarray(do))
+
+    want = jax.grad(objective, argnums=(0, 1, 2))(jq, jk, jv)
+    got = _fp32_route_backward(q, k, v, torch.from_numpy(do), causal, window,
+                               terms)
+    ratios = [max_ratio(g.numpy(), np.asarray(w)) for g, w in zip(got, want)]
+    assert (max(ratios) <= BACKWARD_LIMIT) == (terms == 3), ratios
