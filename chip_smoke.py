@@ -123,7 +123,21 @@ time.
       a ``transformer_database``, simulated for 2000 queries under odin,
       lls, hybrid, oracle and none (each mean throughput as a share of the
       oracle's, which no policy may beat; odin's chunked and scalar runs
-      must be equal), then under odin and oracle on a mesh of 8.
+      must be equal), then under odin and oracle on a mesh of 8;
+   e. the paper's measured interference database (§3.3,
+      ``repro_torch.launch.measured_db.measure``) on 11d's executor and
+      tokens: the 36 blocks timed 3 times alone and under each Table-1
+      stressor row (CPU busy-loops and 64 MiB memory streamers in 1-16
+      spawned processes) and each card co-tenant row (a bf16 8192 x 8192
+      matmul loop, a 2 GiB HBM copy loop, 1 and 2 processes), K1 on its
+      tensor-core kernel 15 x 3 x 36 times.  The (36, 15) database of
+      minima, finite and positive, with the reference's 11 names first,
+      is saved under ``build/`` and must load back equal; each row's mean
+      and median over the passes, the co-tenants' start-up times, card
+      memory and iteration rates before and during timing, the compute
+      mode, the MPS finding and the host's CPUs are printed, and column
+      0's sum beside 11d's (not gated); then 11d's policy comparison over
+      it, each share beside 11d's.
    It prints K1's launches in phase 11.
 10. the MoE and embedding-input families, each model alone on the card
    (the earlier phases' parameters are freed first), with each model's
@@ -330,7 +344,12 @@ from repro_torch.schedulers.runtime import (  # noqa: E402
     RuntimeStep,
 )
 from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.launch import measured_db  # noqa: E402
 from repro_torch.launch.analytic import analytic_cost  # noqa: E402
+from repro_torch.launch.stressors import (  # noqa: E402
+    card_scenarios,
+    scenarios_table1,
+)
 from repro_torch.training import (  # noqa: E402
     AdamWConfig,
     init_adamw,
@@ -440,6 +459,8 @@ MESH_DEVICES, MESH_COLL_FRACTION = 8, 0.25
 MESH_CF_FROM, MESH_CF_TO, MESH_CF = 12, 20, 3.0
 SIM_QUERIES = 2000
 SIM_POLICIES = ("odin", "lls", "hybrid", "oracle", "none")
+# 11e: measured_db's passes a scenario (the database keeps the minimum).
+MDB_REPEATS = 3
 
 # Phase 12: fleets of FLEET_REPLICAS qwen3-4b engines sharing one executor,
 # serving queries of SEQ tokens.  Rates, SLOs and fault windows come from a
@@ -2484,40 +2505,15 @@ def phase_measured_db(cfg, params) -> dict:
     db = transformer_database(bt, seed=0)
     events = generate_events(SIM_QUERIES, 4, db.num_scenarios, 10, 10,
                              seed=0)
-
-    def simulate(name: str, **kw):
-        t0 = time.perf_counter()
-        trace = api.run(api.RunSpec(
-            db=db, num_eps=4, num_queries=SIM_QUERIES,
-            scheduler=api.SchedulerSpec(name=name), **kw))
-        if len(trace.latencies) != SIM_QUERIES or not bool(
-                np.all(np.isfinite(trace.latencies))):
-            raise AssertionError(f"simulation under {name}: bad latencies")
-        return trace, time.perf_counter() - t0
-
-    runs = {name: simulate(name, events=events) for name in SIM_POLICIES}
-    best = runs["oracle"][0].summary()["mean_throughput_qps"]
-    shares = {}
-    for name, (trace, secs) in runs.items():
-        s = trace.summary()
-        shares[name] = s["mean_throughput_qps"] / best
-        log(f"  {name:>6}: mean throughput {s['mean_throughput_qps']:.3f} "
-            f"q/s = {shares[name]:.4f} of the oracle's, serial_frac "
-            f"{s['serial_frac']:.4f}, rebalances {trace.num_rebalances}, "
-            f"trials {trace.total_trials} ({secs:.2f} s)")
-    if max(shares.values()) > 1.0 + 1e-9:
-        raise AssertionError(f"a policy beat the oracle: {shares}")
-    scalar, _ = simulate("odin", events=events,
-                         batching=api.BatchingSpec(chunking=False))
-    if not np.array_equal(scalar.latencies, runs["odin"][0].latencies):
-        raise AssertionError("odin's chunked and scalar simulations differ")
+    shares = compare_policies(db, events, "11d")
 
     mesh = MeshSpec(devices=MESH_DEVICES,
                     coll_cost=MESH_COLL_FRACTION * float(np.mean(bt)))
     mesh_events = list(events) + [InterferenceEvent(
         start=SIM_QUERIES // 3, duration=SIM_QUERIES // 4, ep=0,
         scenario=0, kind="mesh", factor=MESH_CF)]
-    mesh_runs = {name: simulate(name, events=mesh_events, mesh=mesh)[0]
+    mesh_runs = {name: simulate_policy(db, name, events=mesh_events,
+                                       mesh=mesh)[0]
                  for name in ("odin", "oracle")}
     mbest = mesh_runs["oracle"].summary()["mean_throughput_qps"]
     for name, trace in mesh_runs.items():
@@ -2532,6 +2528,103 @@ def phase_measured_db(cfg, params) -> dict:
             f"{fr.mean():.4f}")
     if mesh_runs["odin"].summary()["mean_throughput_qps"] > mbest * (1 + 1e-9):
         raise AssertionError("odin beat the mesh oracle")
+    return dict(launches=launches, shares=shares, bt=bt,
+                executor=eng.executor, tokens=tokens)
+
+
+def simulate_policy(db, name: str, **kw) -> tuple:
+    """SIM_QUERIES simulated queries over ``db`` on 4 EPs under ``name``
+    through ``api.run``; (trace, seconds)."""
+    t0 = time.perf_counter()
+    trace = api.run(api.RunSpec(
+        db=db, num_eps=4, num_queries=SIM_QUERIES,
+        scheduler=api.SchedulerSpec(name=name), **kw))
+    if len(trace.latencies) != SIM_QUERIES or not bool(
+            np.all(np.isfinite(trace.latencies))):
+        raise AssertionError(f"simulation under {name}: bad latencies")
+    return trace, time.perf_counter() - t0
+
+
+def compare_policies(db, events, label: str, beside=None) -> dict:
+    """SIM_POLICIES over ``db`` and ``events``: each mean throughput as a
+    share of the oracle's (``beside``'s shares printed next to them), which
+    no policy may beat; odin's chunked and scalar runs must be equal."""
+    runs = {name: simulate_policy(db, name, events=events)
+            for name in SIM_POLICIES}
+    best = runs["oracle"][0].summary()["mean_throughput_qps"]
+    shares = {}
+    for name, (trace, secs) in runs.items():
+        s = trace.summary()
+        shares[name] = s["mean_throughput_qps"] / best
+        log(f"  {label} {name:>6}: mean throughput "
+            f"{s['mean_throughput_qps']:.3f} q/s = {shares[name]:.4f} of the "
+            f"oracle's"
+            + ("" if beside is None else f" (11d: {beside[name]:.4f})")
+            + f", serial_frac {s['serial_frac']:.4f}, rebalances "
+            f"{trace.num_rebalances}, trials {trace.total_trials} "
+            f"({secs:.2f} s)")
+    if max(shares.values()) > 1.0 + 1e-9:
+        raise AssertionError(f"{label}: a policy beat the oracle: {shares}")
+    scalar, _ = simulate_policy(db, "odin", events=events,
+                                batching=api.BatchingSpec(chunking=False))
+    if not np.array_equal(scalar.latencies, runs["odin"][0].latencies):
+        raise AssertionError(f"{label}: odin's chunked and scalar "
+                             "simulations differ")
+    return shares
+
+
+def phase_interference_db(cfg, d: dict) -> dict:
+    """11e: the paper's measured database (§3.3) for full-width qwen3-4b on
+    11d's executor and tokens: every block timed alone and under the
+    Table-1 stressors and the card co-tenants, MDB_REPEATS passes each
+    (``repro_torch.launch.measured_db.measure``); saved, loaded back, and
+    the policies compared over it as 11d compares them over the synthetic
+    database."""
+    scenarios = scenarios_table1() + card_scenarios()
+    names = [sc.name for sc in scenarios]
+    dev = torch.device("cuda")
+    log(f"  card memory before the co-tenants: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated and "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved by this "
+        f"process, {torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB free")
+    reset_counts(flash_attention)
+    m = measured_db.measure(d["executor"], d["tokens"], scenarios,
+                            MDB_REPEATS, log=log)
+    launches = flash_attention.launches
+    want = len(scenarios) * MDB_REPEATS * cfg.num_blocks
+    if not launches == flash_attention.tensor_core_launches == want:
+        raise AssertionError(
+            f"11e: K1 launched {launches} times "
+            f"({flash_attention.tensor_core_launches} on the tensor cores), "
+            f"expected {len(scenarios)} x {MDB_REPEATS} x {cfg.num_blocks}")
+    db = measured_db.database(m, cfg)
+    if db.table.shape != (cfg.num_blocks, len(scenarios)) or \
+            db.scenario_names != names or names[:11] != [
+                sc.name for sc in scenarios_table1()]:
+        raise AssertionError(f"11e: database {db.table.shape}, "
+                             f"{db.scenario_names}")
+    if not bool(np.all(np.isfinite(db.table)) and np.all(db.table > 0)):
+        raise AssertionError(f"11e: entries not finite and positive: "
+                             f"{db.table}")
+    meta = measured_db.run_meta(dev, m)
+    out = ROOT / "build" / "chip_smoke_measured_db.json"
+    measured_db.save(db, meta, str(out))
+    back = LayerDatabase.load(str(out))
+    if not (np.array_equal(back.table, db.table)
+            and back.scenario_names == names
+            and back.unit_names == db.unit_names
+            and back.model_name == f"{cfg.name}-measured"):
+        raise AssertionError(f"11e: {out} does not load back equal")
+    log(f"  database {db.table.shape} -> {out.relative_to(ROOT)} (loads back "
+        f"equal), sidecar {Path(measured_db.meta_path(str(out))).name}")
+    log(f"  {measured_db.describe(meta)}")
+    col0 = m.table[:, 0]
+    log(f"  column 0 sum {1e3 * col0.sum():.3f} ms against 11d's clean sum "
+        f"{1e3 * d['bt'].sum():.3f} ms (x{col0.sum() / d['bt'].sum():.3f}; "
+        f"not gated)")
+    events = generate_events(SIM_QUERIES, 4, db.num_scenarios, 10, 10,
+                             seed=0)
+    shares = compare_policies(db, events, "11e", beside=d["shares"])
     return dict(launches=launches, shares=shares)
 
 
@@ -3561,16 +3654,22 @@ def main() -> None:
                    phase_mesh, qcfg, qparams, hybrid)
     measured = phase("phase 11d: the simulator over block times measured "
                      "here", phase_measured_db, qcfg, qparams)
+    interfered = phase("phase 11e: the measured interference database "
+                       "(Table-1 stressors and card co-tenants)",
+                       phase_interference_db, qcfg, measured)
+    measured_launches = measured["launches"]
+    del measured             # 11d's engine and executor
     scfg, sparams = init_model(get_config(SMALL_ARCH))
     fleet = phase("phase 12: fleets, admission, faults and QoS tiers "
                   "(serve_cluster)", phase_fleet, qcfg, qparams, scfg,
                   sparams)
     del sparams
     k1_phase11 = (hybrid["launches"] + oracle["launches"]
-                  + meshed["launches"] + measured["launches"])
+                  + meshed["launches"] + measured_launches
+                  + interfered["launches"])
     log(f"  K1 launches in phase 11: {k1_phase11} = {hybrid['launches']} "
         f"(11a) + {oracle['launches']} (11b) + {meshed['launches']} (11c) "
-        f"+ {measured['launches']} (11d)")
+        f"+ {measured_launches} (11d) + {interfered['launches']} (11e)")
     del hybrid
 
     # Phases 13 and 10 load each model alone: the earlier phases' go first.

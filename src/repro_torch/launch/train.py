@@ -11,11 +11,14 @@ the CPU, and asking for CUDA where there is no card fails).  ``--smoke``
 the published one, which trains in fp32 on one card: qwen2-0.5b at full
 width fits an 80 GB H100 at the default batch.  On CUDA the Mamba2
 families (mamba2-370m, jamba) cannot train yet: the SSD scan's kernel has
-no backward (ROADMAP Queue 1 item 12).
+no backward (ROADMAP Queue 1 item 12).  The embedding-input archs
+(hubert-xlarge, llava-next-34b) train here; the JAX CLI raises
+``TypeError`` for them, since it iterates their ``SyntheticEmbeds``.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 
 import torch
 
@@ -48,7 +51,10 @@ def main(argv=None) -> None:
         data = SyntheticLM(cfg.vocab_size, args.seq, args.batch)
     opt = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
                       total_steps=args.steps)
-    train(cfg, opt, iter(data), args.steps,
+    # batch_at(step) for both data classes: SyntheticEmbeds has no
+    # __iter__, and SyntheticLM's yields exactly these batches.
+    batches = (data.batch_at(step) for step in itertools.count())
+    train(cfg, opt, batches, args.steps,
           dtype=torch.float32, device=args.device,
           checkpoint_dir=args.checkpoint_dir,
           checkpoint_every=args.checkpoint_every)

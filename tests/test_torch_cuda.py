@@ -605,6 +605,23 @@ def test_simulator_on_a_database_measured_on_card(card, qwen_two_blocks):
     assert tput["oracle"] >= max(tput.values()) * (1 - 1e-9)
 
 
+@pytest.mark.cuda
+def test_measured_db_card_row_on_card(card, qwen_two_blocks):
+    """One card co-tenant row over two full-width qwen3-4b blocks: the
+    co-tenant runs on the card while the blocks are timed, and the table
+    is positive."""
+    from repro_torch.launch import measured_db, stressors
+    cfg, params, queries = qwen_two_blocks
+    eng = ServingEngine(cfg, params, num_eps=2, device="cuda")
+    rows = [stressors.scenarios_table1()[0], stressors.card_scenarios()[0]]
+    m = measured_db.measure(eng.executor, queries[0], rows, repeats=1,
+                            log=lambda _: None)
+    assert m.table.shape == (cfg.num_blocks, 2) and np.all(m.table > 0)
+    load = m.load["card-matmul-1p"]
+    assert load["rate_alone_hz"] > 0 and load["rate_timing_hz"] > 0
+    assert load["card_bytes"] > 0
+
+
 # -- training: K1's backward kernel and a train step on the card ------------
 
 
