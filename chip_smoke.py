@@ -9,14 +9,17 @@ time.
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions.
    There must be a CUDA device.
-2. build: the port's kernels K1 (its bf16 tensor-core kernel, its fp32
-   kernel and its fp32 backward, both 3xTF32 on the tensor cores), K2 and
-   K3 from their sources in this checkout, one ``nvcc`` per source, all
-   started together; ``ptxas``' registers, spills and the dynamic shared
-   memory of K1's kernels, of its backward's launches and of K3's three
-   launches (with their grids at mamba2-370m's shape); the TF32
-   tensor-core instructions (``HMMA.1688.F32.TF32`` in ``cuobjdump
-   -sass``) of each fp32 kernel, which must not be 0.
+2. build: the port's kernels K1 (its bf16 tensor-core kernel with its
+   plain and LSE entry points, its bf16 backward, its fp32 kernel and its
+   fp32 backward, both 3xTF32 on the tensor cores), K2 and K3 from their
+   sources in this checkout, one ``nvcc`` per source, all started
+   together; ``ptxas``' registers, spills and the dynamic shared memory of
+   K1's kernels (both instantiations of the bf16 forward), of its
+   backwards' launches and of K3's three launches (with their grids at
+   mamba2-370m's shape); the TF32 tensor-core instructions
+   (``HMMA.1688.F32.TF32`` in ``cuobjdump -sass``) of each fp32 kernel and
+   the bf16 ones (``HMMA.16816.F32.BF16``) of the bf16 backward's tile
+   kernels, which must not be 0.
 3. K1 (flash attention) against its plain version on the card, at the
    shapes and tolerances of ``repro_torch.kernels.cases``: the JAX
    package's FLASH_CASES shapes in fp32 (tolerance 2e-5; the fp32 kernel,
@@ -219,6 +222,17 @@ time.
       yardstick the port never calls), with the operations they execute
       (TFLOP/s) and two bounds: the fp32 CUDA-core peak's and three TF32
       products' at the tensor-core peak (the lesser is the row's bound);
+      then K1's bf16 backward (``csrc/flash_attention_bwd_bf16.cu``) on
+      BACKWARD_BF16_CASES against the plain backward on the same bf16
+      inputs, within BACKWARD_BF16_LIMIT of max |ref| and
+      BACKWARD_BF16_RMS_LIMIT of its rms (BACKWARD_BF16_ZERO_ATOL where
+      the plain gradient is exactly 0), the bf16 LSE entry's output
+      bit-equal to the plain entry point's and its LSE the rows'
+      log-sum-exp of the plain fp32 scores to 1e-4; both timed at (8, 14,
+      2, 256, 64), (1, 14, 2, 1024, 64) and (1, 32, 8, 1024, 128) beside
+      the plain version, bf16 sdpa and autograd's backward of it, the bound
+      (the needed products at the bf16 peak, or the bytes) and the
+      executed TFLOP/s;
    b. full-width qwen2-0.5b (24 blocks, 0.63 B parameters) in fp32 with
       remat per block, batches of ``SyntheticLM(vocab, 256, 8, seed=0)``:
       step 0's loss and every gradient leaf with K1 against the same with
@@ -233,12 +247,22 @@ time.
    c. one train step of deepseek-moe-16b, mixtral-8x22b (window 64),
       hubert-xlarge (bidirectional, embeddings) and llava-next-34b
       (embeddings) at smoke width, K1 against the plain attention at b's
-      limits; mamba2-370m must raise ``NotImplementedError`` (K3 has no
-      backward yet);
+      limits, then one bf16 step of deepseek-moe-16b and mixtral-8x22b
+      (K1's bf16 kernels) at e's limits; mamba2-370m must raise
+      ``NotImplementedError`` (K3 has no backward yet);
    d. ``python -m repro_torch.launch.train --arch qwen2-0.5b --full
-      --steps 20``.
-14. the card line again, one ``{"kernels": [...]}`` line, and last
-   ``{"ok": true, "device": {...}}``.
+      --steps 20``;
+   e. full-width qwen2-0.5b in bf16, ``train(..., dtype=torch.bfloat16)``
+      at b's data and optimizer: step 0's loss and every gradient leaf with
+      K1's bf16 kernels against ``impl="ref"`` (TRAIN_BF16_LOSS_RTOL,
+      TRAIN_BF16_GRAD_RMS_LIMIT), 30 steps with every loss finite and the
+      mean of the last 5 below step 0's, exactly 2 x 24 x 30 bf16 forward
+      launches (24 x 30 of them LSE launches) and 24 x 30 bf16 backward
+      launches and no fp32 one; the median step time, tokens/s, TFLOP/s,
+      the busy share, K1's shares, the five kernels with the most device
+      time and the peak memory, beside b's fp32 numbers.
+14. the total time, the card line again, one ``{"kernels": [...]}`` line,
+   and last ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM data-sheet peaks: 989 TFLOP/s dense bf16 on the
 tensor cores and 3.35 TB/s of HBM3.
@@ -272,6 +296,13 @@ from repro_torch.kernels import decode_attention as k2_lib  # noqa: E402
 from repro_torch.kernels import flash_attention as k1_lib  # noqa: E402
 from repro_torch.kernels import ssd_scan as k3_lib  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
+    BACKWARD_BF16_CASES,
+    BACKWARD_BF16_LIMIT,
+    BACKWARD_BF16_LONG_CASE,
+    BACKWARD_BF16_RMS_LIMIT,
+    BACKWARD_BF16_TRAIN_CASE,
+    BACKWARD_BF16_WIDE_CASE,
+    BACKWARD_BF16_ZERO_ATOL,
     BACKWARD_CASES,
     BACKWARD_LIMIT,
     BACKWARD_LONG_CASE,
@@ -300,6 +331,7 @@ from repro_torch.kernels.cases import (  # noqa: E402
     SSD_RAGGED_CASES,
     SSD_STATE_RMS_LIMIT,
     TENSOR_CORE_CASES,
+    bf16_backward_check,
     max_ratio,
     ssd_limit,
     tolerance,
@@ -379,7 +411,7 @@ PEAK_FP32_FLOPS = 67e12       # H100 SXM, fp32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12      # H100 SXM, dense TF32 tensor cores
 PEAK_HBM_BYTES = 3.35e12      # H100 SXM, HBM3
 KERNELS = ("flash_attention_bf16", "flash_attention", "flash_attention_bwd",
-           "decode_attention", "ssd_scan")
+           "flash_attention_bwd_bf16", "decode_attention", "ssd_scan")
 # A clean query's block time with the first designs of K1 (bf16 on the fp32
 # CUDA cores) and K3 (one block per head), chip_smoke.py on an NVIDIA H100
 # 80GB HBM3 at 700 W, printed beside this run's.
@@ -505,6 +537,15 @@ ENGINE_FAULTS, ENGINE_RETRIES, ENGINE_FAULT_QUERIES = \
 TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = "qwen2-0.5b", 256, 8, 30
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=3, total_steps=30)
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RMS_LIMIT = 1e-5, 1e-4
+# 13e: the same in bf16, K1's bf16 kernels against the plain attention.
+# Both sides round every product and activation to bf16, so a difference
+# in one attention output moves the roundings after it.  The limits are
+# bf16's own scale, the CPU test's port-against-JAX limits in bf16
+# (tests/test_torch_training.py, readings 2.2e-5 in the loss and 1.5e-2 of
+# a leaf's rms at smoke width), set before the first run on the card.
+TRAIN_BF16_LOSS_RTOL, TRAIN_BF16_GRAD_RMS_LIMIT = 2e-4, 5e-2
+# 13c: the families that take a bf16 step (K1's bf16 kernels).
+FAMILY_BF16_TRAIN_ARCHS = ("deepseek-moe-16b", "mixtral-8x22b")
 FAMILY_TRAIN_ARCHS = ("deepseek-moe-16b", "mixtral-8x22b", "hubert-xlarge",
                       "llava-next-34b")
 FAMILY_TRAIN_SEQ, TRAIN_CLI_STEPS = 128, 20
@@ -692,15 +733,15 @@ def kernel_label(mangled: str) -> str:
     return f"{name}<{', '.join(args)}>" if args else name
 
 
-def tf32_mma_counts(name: str) -> dict:
+def hmma_counts(name: str, op: str) -> dict:
     """Each kernel of ``csrc/<name>.cu``'s library (mangled name) -> its
-    TF32 tensor-core instructions, ``HMMA.1688.F32.TF32`` in ``cuobjdump
-    -sass``."""
+    tensor-core instructions ``op`` in ``cuobjdump -sass``: TF32 m16n8k8
+    (``HMMA.1688.F32.TF32``) or bf16 m16n8k16 (``HMMA.16816.F32.BF16``)."""
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass",
                            str(build.lib_path(name))], capture_output=True,
                           text=True, check=True).stdout
-    return {part.split()[0]: part.count("HMMA.1688.F32.TF32")
+    return {part.split()[0]: part.count(op)
             for part in re.split(r"\n\s*Function : ", sass)[1:]}
 
 
@@ -1238,7 +1279,8 @@ def phase_qwen(cfg, params, kernel_ms: float) -> dict:
     # Serving launches no training kernel: no LSE forward, no backward.
     want = {"tensor_core_launches": cfg.num_blocks * NUM_QUERIES,
             "fp32_launches": 0, "lse_launches": 0,
-            "backward_launches": 0}
+            "backward_launches": 0, "bf16_lse_launches": 0,
+            "bf16_backward_launches": 0}
     if served["counts"] != want:
         raise AssertionError(f"K1 routes while serving: {served['counts']}, "
                              f"expected {want}")
@@ -2168,7 +2210,8 @@ def phase_deepseek(k1_ms: float) -> dict:
     served = serve_under_odin(cfg, params, flash_attention, "K1", k1_ms)
     want = {"tensor_core_launches": cfg.num_blocks * NUM_QUERIES,
             "fp32_launches": 0, "lse_launches": 0,
-            "backward_launches": 0}
+            "backward_launches": 0, "bf16_lse_launches": 0,
+            "bf16_backward_launches": 0}
     if served["counts"] != want:
         raise AssertionError(f"K1 routes while serving: {served['counts']}")
     burst_rows_alone(cfg, params, list(toks[:, None]))
@@ -3245,10 +3288,170 @@ def fp32_bounds(needed: float, nbytes: float) -> tuple:
     return min(cuda, tf32), cuda, tf32
 
 
+def bf16_fwd_work(B, Hq, Hkv, S, D, causal, window) -> tuple:
+    """K1's bf16 forward with its LSE: (operations it needs, operations it
+    executes, bytes).  It executes S = Q K^T and P V as hi and lo (three
+    products) over whole 128 x 128 tiles at the padded width.  Bytes: what
+    the function needs, q, k, v read once and o written once in bf16 and
+    the fp32 lse written once; the fp32 copy of o this entry also writes
+    for the backward is the design's cost, not the function's, and shows
+    as kernel time over the bound."""
+    needed = 2 * 2 * B * Hq * attention_pairs(S, causal, window) * D
+    tiles = sum(len(key_tiles(S, q0, 128, 128, causal, window))
+                for q0 in range(0, S, 128))
+    executed = 3 * 2 * 128 * 128 * fp32_width(D) * B * Hq * tiles
+    nbytes = 2 * (2 * Hq + 2 * Hkv) * B * S * D + 4 * B * Hq * S
+    return needed, executed, nbytes
+
+
+def bf16_bwd_work(B, Hq, Hkv, S, D, causal, window) -> tuple:
+    """K1's bf16 backward: (operations it needs, operations it executes,
+    bytes).  It needs five products over the kept pairs; it executes six
+    for each (64-key, 32-query) tile pair of its dK/dV blocks (S, dP, dV
+    and dK as hi and lo) and four for each (64-query, 32-key) pair of its
+    dQ blocks (S, dP, dQ as hi and lo), over the padded width.  Bytes: what
+    the function needs, bf16 q, k, v, o and dO and the fp32 lse read once,
+    bf16 dq, dk and dv written once (the kernel reads the fp32 o in place
+    of the bf16 one: its cost shows as kernel time over the bound)."""
+    needed = 5 * 2 * B * Hq * attention_pairs(S, causal, window) * D
+    kv_pairs = sum(len(query_tiles(S, k0, 64, 32, causal, window))
+                   for k0 in range(0, S, 64))
+    q_pairs = sum(len(key_tiles(S, q0, 64, 32, causal, window))
+                  for q0 in range(0, S, 64))
+    executed = (2 * 64 * 32 * fp32_width(D) * B * Hq
+                * (6 * kv_pairs + 4 * q_pairs))
+    nbytes = 2 * B * S * D * (4 * Hq + 4 * Hkv) + 4 * B * Hq * S
+    return needed, executed, nbytes
+
+
+def masked_lse(q, k, causal: bool, window) -> torch.Tensor:
+    """Each row's log-sum-exp of its plain fp32 scaled, masked scores."""
+    B, Hq, S, D = q.shape
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()
+                     .repeat_interleave(Hq // k.shape[1], 1)) * D ** -0.5
+    i = torch.arange(S, device=q.device)
+    keep = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= i[:, None] >= i[None]
+    if window is not None:
+        keep &= i[:, None] - i[None] < window
+    return torch.logsumexp(s.masked_fill(~keep, float("-inf")), dim=-1)
+
+
+def backward_bf16_check(gen) -> dict:
+    """13a in bf16: K1's bf16 backward (csrc/flash_attention_bwd_bf16.cu)
+    against the plain backward on BACKWARD_BF16_CASES at
+    BACKWARD_BF16_LIMIT and BACKWARD_BF16_RMS_LIMIT, the bf16 LSE entry's
+    o bit-equal to the plain entry point's and its LSE the rows'
+    log-sum-exp to 1e-4; both timed at three shapes."""
+    worst = dict(bwd=0.0, fwd=0.0, rms=0.0, lse=0.0)
+    for case in BACKWARD_BF16_CASES:
+        B, Hq, Hkv, S, D, causal, window, dtype = case
+        q, k, v, do = (randn(gen, s, dtype) for s in (
+            (B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D), (B, Hq, S, D)))
+        o, lse, o32 = k1_lib.forward_for_backward(
+            q, k, v, causal=causal, window=window)
+        o_plain = flash_attention(q, k, v, causal=causal, window=window)
+        got = k1_lib.backward(q, k, v, o32, lse, do, causal=causal,
+                              window=window)
+        want = flash_attention_bwd_ref(q, k, v, do, causal=causal,
+                                       window=window)
+        lse_err = float((lse - masked_lse(q, k, causal, window)).abs().max())
+        torch.cuda.synchronize()
+        if not torch.equal(o, o_plain) or not lse_err <= 1e-4:
+            raise AssertionError(f"K1 bf16 {case}: the LSE entry point's "
+                                 f"output differs from the plain entry "
+                                 f"point's, or its LSE is {lse_err:.2e} off")
+        fwd = compare(o, flash_attention_ref(q, k, v, causal=causal,
+                                             window=window),
+                      tolerance(dtype), f"K1 bf16 forward {case}")
+        checks = [bf16_backward_check(g, w) for g, w in zip(got, want)]
+        log(f"  K1 bf16 backward {case}: max|err|/max|ref|, rms err / rms "
+            f"ref: " + ", ".join(
+                f"{n} {r:.3e}, {rr:.3e}" if float(w.abs().max()) else
+                f"{n} exactly 0 in the plain version: max |got| {r:.3e} "
+                f"(limit {BACKWARD_BF16_ZERO_ATOL})"
+                for n, (r, rr, _), w in zip(("dq", "dk", "dv"), checks, want))
+            + f" (limits {BACKWARD_BF16_LIMIT}, {BACKWARD_BF16_RMS_LIMIT}); "
+            f"LSE forward bit-equal to the plain entry point, LSE max |err| "
+            f"{lse_err:.2e}")
+        if not (all(ok for _, _, ok in checks)
+                and all(bool(torch.isfinite(g.float()).all()) for g in got)):
+            raise AssertionError(f"K1 bf16 backward {case}: {checks}")
+        worst["bwd"] = max([worst["bwd"]] + [
+            float((g.float() - w.float()).abs().max())
+            for g, w in zip(got, want)])
+        worst["rms"] = max([worst["rms"]] + [
+            rr for (_, rr, _), w in zip(checks, want)
+            if float(w.abs().max())])
+        worst["fwd"] = max(worst["fwd"], fwd["max_abs_err"])
+        worst["lse"] = max(worst["lse"], lse_err)
+
+    timed = {}
+    for case in (BACKWARD_BF16_TRAIN_CASE, BACKWARD_BF16_LONG_CASE,
+                 BACKWARD_BF16_WIDE_CASE):
+        B, Hq, Hkv, S, D, causal, window, dtype = case
+        q, k, v, do = (randn(gen, s, dtype) for s in (
+            (B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D), (B, Hq, S, D)))
+        o, lse, o32 = k1_lib.forward_for_backward(
+            q, k, v, causal=causal, window=window)
+        bwd_ms = time_ms(lambda: k1_lib.backward(q, k, v, o32, lse, do,
+                                                 causal=causal,
+                                                 window=window))
+        plain_bwd_ms = time_ms(lambda: flash_attention_bwd_ref(
+            q, k, v, do, causal=causal, window=window), reps=10)
+        # The yardstick: autograd's backward through sdpa's bf16 forward.
+        lq, lk, lv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        lo = torch.nn.functional.scaled_dot_product_attention(
+            lq, lk, lv, is_causal=causal, enable_gqa=True)
+        library_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            lo, (lq, lk, lv), do, retain_graph=True))
+        fwd_ms = time_ms(lambda: k1_lib.forward_for_backward(
+            q, k, v, causal=causal, window=window))
+        plain_fwd_ms = time_ms(lambda: flash_attention_ref(
+            q, k, v, causal=causal, window=window), reps=10)
+        library_fwd_ms = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True))
+        plain_entry_ms = time_ms(lambda: flash_attention(
+            q, k, v, causal=causal, window=window))
+        timed[case] = {}
+        lines = {}
+        for kind, work, ms, plain_ms, library_ms in (
+                ("bwd", bf16_bwd_work, bwd_ms, plain_bwd_ms, library_bwd_ms),
+                ("fwd", bf16_fwd_work, fwd_ms, plain_fwd_ms,
+                 library_fwd_ms)):
+            needed, executed, nbytes = work(*case[:7])
+            bound_ms, bound_by = bound(needed, nbytes, PEAK_BF16_FLOPS)
+            timed[case][kind] = dict(ms=ms, plain_ms=plain_ms,
+                                     library_ms=library_ms,
+                                     bound_ms=bound_ms, bound_by=bound_by)
+            lines[kind] = (
+                f"bound_ms {bound_ms:.4f} ({bound_by}; {needed / 1e9:.3f} "
+                f"GFLOP needed at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, "
+                f"{nbytes / 1e6:.1f} MB at 3.35 TB/s); it executes "
+                f"{executed / 1e9:.3f} GFLOP of bf16 products over whole "
+                f"tiles, {executed / ms / 1e9:.1f} TFLOP/s "
+                f"({needed / ms / 1e9:.1f} of the needed)")
+        log(f"  K1 bf16 backward {case}: kernel_ms {bwd_ms:.4f} (3 launches:"
+            f" delta, the dK/dV and dQ tiles, the sum of the GQA shares)  "
+            f"plain_ms {plain_bwd_ms:.4f} (autograd through the plain "
+            f"attention)  library_ms {library_bwd_ms:.4f} (autograd's "
+            f"backward of bf16 scaled_dot_product_attention; kernel / "
+            f"library {bwd_ms / library_bwd_ms:.2f})  {lines['bwd']}")
+        log(f"  K1 bf16 forward with LSE {case}: kernel_ms {fwd_ms:.4f} (the "
+            f"plain entry point {plain_entry_ms:.4f})  plain_ms "
+            f"{plain_fwd_ms:.4f}  library_ms {library_fwd_ms:.4f} (bf16 "
+            f"scaled_dot_product_attention; kernel / library "
+            f"{fwd_ms / library_fwd_ms:.2f})  {lines['fwd']}")
+    return dict(worst=worst, timed=timed)
+
+
 def phase_backward_check() -> dict:
     """13a: K1's backward kernel against the plain backward on
     BACKWARD_CASES, the LSE entry point against the plain entry point; both
-    timed at the training shape and at S 1024."""
+    timed at the training shape and at S 1024; then the same in bf16
+    (:func:`backward_bf16_check`)."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     worst = dict(bwd=0.0, fwd=0.0)
     for case in BACKWARD_CASES:
@@ -3335,14 +3538,16 @@ def phase_backward_check() -> dict:
             f"plain_ms {plain_fwd_ms:.4f}  library_ms {library_fwd_ms:.4f} "
             f"(fp32 scaled_dot_product_attention; kernel / library "
             f"{fwd_ms / library_fwd_ms:.2f})  {lines['fwd']}")
-    return dict(worst=worst, timed=timed)
+    return dict(worst=worst, timed=timed, bf16=backward_bf16_check(gen))
 
 
-def grads_against_ref(model, params, batch, what: str) -> tuple:
+def grads_against_ref(model, params, batch, what: str,
+                      loss_rtol: float = TRAIN_LOSS_RTOL,
+                      grad_limit: float = TRAIN_GRAD_RMS_LIMIT) -> tuple:
     """Step 0's loss and every gradient leaf with the kernels against the
-    same with ``impl="ref"`` on the card: the loss to TRAIN_LOSS_RTOL, each
-    leaf's rms error to TRAIN_GRAD_RMS_LIMIT of its rms.  Returns (loss,
-    worst leaf ratio)."""
+    same with ``impl="ref"`` on the card: the loss to ``loss_rtol``, each
+    leaf's rms error to ``grad_limit`` of its rms.  Returns (loss, worst
+    leaf ratio)."""
     (loss, _), grads = loss_and_grads(model, params, batch)
     (loss_ref, _), grads_ref = loss_and_grads(model, params, batch,
                                               impl="ref")
@@ -3351,17 +3556,17 @@ def grads_against_ref(model, params, batch, what: str) -> tuple:
     worst, worst_key = 0.0, None
     for (key, g), w in zip(flatten(grads).items(),
                            flatten(grads_ref).values()):
-        err, ref = rms(g - w), rms(w)
+        err, ref = rms(g.float() - w.float()), rms(w)
         ratio = err / ref if ref > 0 else (0.0 if err == 0 else float("inf"))
         if ratio > worst:
             worst, worst_key = ratio, key
         if not bool(torch.isfinite(g).all()):
             raise AssertionError(f"{what}: non-finite gradient at {key}")
     log(f"  {what}: loss {float(loss):.6f} with K1, {float(loss_ref):.6f} "
-        f"with the plain attention (rel {rel:.2e}, limit {TRAIN_LOSS_RTOL});"
+        f"with the plain attention (rel {rel:.2e}, limit {loss_rtol});"
         f" worst gradient leaf rms err / rms {worst:.2e} at {worst_key} "
-        f"(limit {TRAIN_GRAD_RMS_LIMIT})")
-    if not (rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_RMS_LIMIT):
+        f"(limit {grad_limit})")
+    if not (rel <= loss_rtol and worst <= grad_limit):
         raise AssertionError(f"{what}: K1's gradients disagree with the "
                              f"plain attention's")
     return float(loss), worst
@@ -3369,20 +3574,24 @@ def grads_against_ref(model, params, batch, what: str) -> tuple:
 
 def k1_kernel_ms(prof) -> dict:
     """Device ms of K1's forward and backward kernels, of the matrix
-    products (cuBLAS kernels, "gemm" in their names) and of all kernels in
-    a ``torch.profiler`` run."""
+    products (cuBLAS kernels: "gemm", or "nvjet" for Hopper's cuBLASLt
+    kernels, in their names) and of all kernels in a ``torch.profiler``
+    run; ``top``: the five kernels with the most device time."""
     out = dict(fwd=0.0, bwd=0.0, gemm=0.0, total=0.0)
+    by_name = []
     for ev in prof.key_averages():
         t = (getattr(ev, "device_time_total", None)
              or getattr(ev, "cuda_time_total", 0)) / 1e3
         out["total"] += t
+        by_name.append((t, ev.key))
         if "flash_fwd" in ev.key:
             out["fwd"] += t
         elif any(k in ev.key for k in ("bwd_delta", "bwd_tiles",
                                        "bwd_dkv_sum")):
             out["bwd"] += t
-        elif "gemm" in ev.key.lower():
+        elif any(k in ev.key.lower() for k in ("gemm", "nvjet")):
             out["gemm"] += t
+    out["top"] = sorted(by_name, reverse=True)[:5]
     return out
 
 
@@ -3417,7 +3626,8 @@ def phase_train() -> dict:
     log(f"  K1 launches over the {TRAIN_STEPS} steps: {counts}")
     n = cfg.num_blocks * TRAIN_STEPS
     want = dict(launches=2 * n, fp32_launches=2 * n, lse_launches=n,
-                backward_launches=n, tensor_core_launches=0)
+                backward_launches=n, tensor_core_launches=0,
+                bf16_lse_launches=0, bf16_backward_launches=0)
     if counts != want:
         raise AssertionError(f"K1 launches in training: {counts}, expected "
                              f"{want}")
@@ -3484,13 +3694,15 @@ def phase_train() -> dict:
         f"%)")
     log_memory(f"{cfg.name} training")
     return dict(counts=counts, step_s=step_s, losses=losses,
-                busy=dev_ms["total"] / (1e3 * wall))
+                busy=dev_ms["total"] / (1e3 * wall),
+                peak=torch.cuda.max_memory_allocated())
 
 
 def phase_train_families() -> dict:
     """13c: one train step of each family at its smoke width: K1 against
     the plain attention at 13b's limits, then a step of ``make_train_step``;
-    mamba2-370m must raise on the card (K3 has no backward yet)."""
+    the MoE families again in bf16 at 13e's limits; mamba2-370m must raise
+    on the card (K3 has no backward yet)."""
     dev = torch.device("cuda")
     for arch in FAMILY_TRAIN_ARCHS:
         cfg = get_smoke_config(arch)
@@ -3515,6 +3727,30 @@ def phase_train_families() -> dict:
             f" {float(m['aux_loss']):.4f}, router_z {float(m['router_z']):.4f}"
             f"; device memory peak "
             f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    # bf16: K1's bf16 forward and backward in the MoE families' blocks.
+    for arch in FAMILY_BF16_TRAIN_ARCHS:
+        cfg = get_smoke_config(arch)
+        params = Model(cfg).init_params(seed=0, dtype=torch.bfloat16,
+                                        device="cuda")
+        batch = to_batch(SyntheticLM(cfg.vocab_size, FAMILY_TRAIN_SEQ, 2)
+                         .batch_at(0), dev)
+        reset_counts(flash_attention)
+        grads_against_ref(Model(cfg, remat=True), params, batch,
+                          f"{arch} in bf16 (smoke width, S "
+                          f"{FAMILY_TRAIN_SEQ}, window {cfg.sliding_window})",
+                          TRAIN_BF16_LOSS_RTOL, TRAIN_BF16_GRAD_RMS_LIMIT)
+        step = make_train_step(cfg, AdamWConfig(warmup_steps=1))
+        _, state, m = step(params, init_adamw(params), batch)
+        n = 2 * cfg.num_blocks
+        if not (np.isfinite(float(m["loss"]))
+                and flash_attention.bf16_backward_launches == n
+                and flash_attention.bf16_lse_launches == n
+                and flash_attention.fp32_launches == 0):
+            raise AssertionError(f"{arch} bf16: train step loss "
+                                 f"{float(m['loss'])}, K1 launches "
+                                 f"{vars(flash_attention)}")
+        log(f"  {arch} in bf16: one train step, loss {float(m['loss']):.4f},"
+            f" K1 bf16 backward launches {n}")
     cfg = get_smoke_config("mamba2-370m")
     params = Model(cfg).init_params(seed=0, device="cuda")
     batch = to_batch(SyntheticLM(cfg.vocab_size, FAMILY_TRAIN_SEQ, 2)
@@ -3527,6 +3763,101 @@ def phase_train_families() -> dict:
         raise AssertionError("mamba2-370m trained on the card without K3's "
                              "backward")
     return {}
+
+
+def phase_train_bf16(fp32: dict) -> dict:
+    """13e: full-width qwen2-0.5b in bf16 with remat: step 0's gradients
+    with K1's bf16 kernels against the plain attention, TRAIN_STEPS steps
+    of ``train(dtype=torch.bfloat16)`` with exact launch counts, the step's
+    time and where it goes, beside 13b's fp32 numbers."""
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, remat=True)
+    params = model.init_params(seed=0, dtype=torch.bfloat16, device="cuda")
+    log(f"  {cfg.name}: bf16 weights, remat per block; batch {TRAIN_BATCH} "
+        f"x {TRAIN_SEQ} tokens (SyntheticLM, seed 0), 13b's optimizer")
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    dev = torch.device("cuda")
+    grads_against_ref(model, params, to_batch(data.batch_at(0), dev),
+                      "step 0, full width, bf16", TRAIN_BF16_LOSS_RTOL,
+                      TRAIN_BF16_GRAD_RMS_LIMIT)
+
+    opt = AdamWConfig(**TRAIN_OPT)
+    reset_counts(flash_attention)
+    out = train(cfg, opt, iter(data), TRAIN_STEPS, dtype=torch.bfloat16,
+                device="cuda", params=params, log_every=1,
+                log_fn=lambda *_: None)
+    counts = {name: n for name, n in vars(flash_attention).items()
+              if name.endswith("launches")}
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    steps_s = np.diff([0.0] + [h["wall_s"] for h in hist])
+    log(f"  {TRAIN_STEPS} steps in bf16: losses "
+        f"{[round(x, 4) for x in losses]} (fp32, 13b: "
+        f"{[round(x, 4) for x in fp32['losses']]})")
+    log(f"  K1 launches over the {TRAIN_STEPS} steps: {counts}")
+    n = cfg.num_blocks * TRAIN_STEPS
+    want = dict(launches=2 * n, tensor_core_launches=2 * n, lse_launches=n,
+                bf16_lse_launches=n, backward_launches=n,
+                bf16_backward_launches=n, fp32_launches=0)
+    if counts != want:
+        raise AssertionError(f"K1 launches in bf16 training: {counts}, "
+                             f"expected {want}")
+    if not (all(np.isfinite(losses))
+            and np.mean(losses[-5:]) < losses[0]):
+        raise AssertionError(f"bf16 training did not lower the loss: "
+                             f"{losses}")
+    if any(p.dtype != torch.bfloat16 for p in flatten(out["params"])
+           .values()):
+        raise AssertionError("a bf16 parameter changed its dtype")
+
+    # Where a step's time goes: the card's busy share and K1's shares.
+    from torch.profiler import ProfilerActivity, profile
+    step_fn = make_train_step(cfg, opt)
+    batch = to_batch(data.batch_at(TRAIN_STEPS), dev)
+    p, s = out["params"], out["opt_state"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        p, s, _ = step_fn(p, s, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_ms = k1_kernel_ms(prof)
+    step_s = float(np.median(steps_s[1:]))
+    shape = InputShape("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    flops = analytic_cost(cfg, shape).totals("train", remat=True)["flops"]
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    busy = dev_ms["total"] / (1e3 * wall)
+    log(f"  bf16 step time (host clock, synchronised, median of steps 1-"
+        f"{TRAIN_STEPS - 1}): {1e3 * step_s:.2f} ms (step 0 "
+        f"{1e3 * steps_s[0]:.2f} ms; fp32, 13b: {1e3 * fp32['step_s']:.2f} "
+        f"ms, x{fp32['step_s'] / step_s:.2f}); {tokens / step_s:.0f} "
+        f"tokens/s (fp32 {tokens / fp32['step_s']:.0f}); {flops / 1e12:.3f} "
+        f"TFLOP a step (launch/analytic.py, train, remat) = "
+        f"{flops / step_s / 1e12:.2f} TFLOP/s achieved (fp32 "
+        f"{flops / fp32['step_s'] / 1e12:.2f})")
+    log(f"  one profiled bf16 step: {1e3 * wall:.2f} ms on the host clock, "
+        f"the card busy {dev_ms['total']:.2f} ms ({100 * busy:.1f}%; fp32 "
+        f"{100 * fp32['busy']:.1f}%); K1 forward {dev_ms['fwd']:.2f} ms "
+        f"({100 * dev_ms['fwd'] / dev_ms['total']:.1f}% of busy), K1 "
+        f"backward {dev_ms['bwd']:.2f} ms "
+        f"({100 * dev_ms['bwd'] / dev_ms['total']:.1f}%), matrix products "
+        f"{dev_ms['gemm']:.2f} ms "
+        f"({100 * dev_ms['gemm'] / dev_ms['total']:.1f}%); the five "
+        f"kernels with the most device time: "
+        + "; ".join(f"{name[:60]} {t:.2f} ms" for t, name in dev_ms["top"]))
+    log_memory(f"{cfg.name} bf16 training")
+    log(f"  peak device memory: bf16 "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, fp32 (13b) "
+        f"{fp32['peak'] / 2**30:.2f} GiB")
+    # What the fp32 O saved for the bf16 backward's delta costs, beside
+    # the bf16 O the function itself needs.
+    o_elems = TRAIN_BATCH * cfg.num_heads * TRAIN_SEQ * cfg.head_dim
+    log(f"  the fp32 O saved for the backward: {4 * o_elems / 2**20:.2f} "
+        f"MiB a layer, {4 * o_elems * cfg.num_blocks / 2**20:.1f} MiB over "
+        f"{cfg.num_blocks} layers (a bf16 O: "
+        f"{2 * o_elems * cfg.num_blocks / 2**20:.1f} MiB)")
+    return dict(counts=counts, step_s=step_s, losses=losses, busy=busy)
 
 
 def phase_train_cli() -> dict:
@@ -3581,9 +3912,10 @@ def main() -> None:
         smem = lib.odin_flash_attention_bf16_smem_bytes
         smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
         for name, line in ptxas_lines(logs["flash_attention_bf16"] or ""):
-            dp = int(re.search(r"ILi(\d+)E", name).group(1))
-            log(f"  K1 tensor-core kernel, head dims padded to {dp}: {line}, "
-                f"{smem(dp)} B dynamic shared memory")
+            dp, lse = re.search(r"ILi(\d+)ELb(\d)E", name).groups()
+            log(f"  K1 tensor-core kernel, head dims padded to {dp}"
+                f"{' (LSE entry)' if lse == '1' else ''}: {line}, "
+                f"{smem(int(dp))} B dynamic shared memory")
         b, S, H, P, N, chunk, _ = SSD_MAIN_CASE
         shapes = k3_lib.launch_shape(b, S, H, P, N, chunk, torch.bfloat16)
         for name, line in ptxas_lines(logs["ssd_scan"] or ""):
@@ -3617,9 +3949,31 @@ def main() -> None:
                 + f": {line}" + ("" if width is None else
                                  f", {smem(int(width.group(1)))} B "
                                  f"dynamic shared memory"))
+        bwd_lib = build.load("flash_attention_bwd_bf16")
+        smem = bwd_lib.odin_flash_attention_bwd_bf16_smem_bytes
+        smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+        for name, line in ptxas_lines(logs["flash_attention_bwd_bf16"]
+                                      or ""):
+            kernel = re.search(r"bwd_(?:dkv_sum|tiles|delta)", name).group()
+            width = re.search(r"ILi(\d+)E", name)
+            log(f"  K1 bf16 backward {kernel}"
+                + ("" if width is None else
+                   f", head dims padded to {width.group(1)}")
+                + f": {line}" + ("" if width is None else
+                                 f", {smem(int(width.group(1)))} B "
+                                 f"dynamic shared memory"))
+        counts = hmma_counts("flash_attention_bwd_bf16",
+                             "HMMA.16816.F32.BF16")
+        for fn, n in counts.items():
+            log(f"  flash_attention_bwd_bf16.cu {kernel_label(fn)}: {n} "
+                f"HMMA.16816.F32.BF16")
+        if min(n for fn, n in counts.items() if "bwd_tiles" in fn) == 0:
+            raise AssertionError(f"flash_attention_bwd_bf16: a tile kernel "
+                                 f"has no bf16 tensor-core instruction: "
+                                 f"{counts}")
         # The fp32 kernels' products on the tensor cores: TF32 mma.sync.
         for name in ("flash_attention", "flash_attention_bwd"):
-            counts = tf32_mma_counts(name)
+            counts = hmma_counts(name, "HMMA.1688.F32.TF32")
             for fn, n in counts.items():
                 log(f"  {name}.cu {kernel_label(fn)}: {n} "
                     f"HMMA.1688.F32.TF32")
@@ -3629,7 +3983,7 @@ def main() -> None:
                 raise AssertionError(f"{name}: a kernel has no TF32 "
                                      f"tensor-core instruction: {counts}")
 
-    phase("phase 2: build K1 (bf16, fp32 and its backward), K2, K3",
+    phase("phase 2: build K1 (bf16, fp32 and their backwards), K2, K3",
           build_all)
     main_k1 = phase("phase 3: K1 against its plain version",
                     phase_kernel_check)
@@ -3686,6 +4040,10 @@ def main() -> None:
           phase_train_families)
     free_memory()
     phase("phase 13d: the training CLI at full width", phase_train_cli)
+    free_memory()
+    trained_bf16 = phase("phase 13e: full-width qwen2-0.5b trains in bf16",
+                         phase_train_bf16, trained)
+    free_memory()
     family = phase("phase 10.0: the new paths' kernel shapes against their "
                    "plain versions", phase_family_kernels)
     free_memory()
@@ -3747,8 +4105,20 @@ def main() -> None:
          trained["counts"]["backward_launches"],
          dict(k1_train["bwd"], max_abs_err=bwd["worst"]["bwd"])),
     ]
+    # The bf16 training path: K1's bf16 LSE entry and its bf16 backward,
+    # launched by phase 13e's steps.
+    k1_bf16 = bwd["bf16"]["timed"][BACKWARD_BF16_TRAIN_CASE]
+    rows += [
+        ("flash_attention_bf16_lse", "flash_attention.py:96",
+         trained_bf16["counts"]["bf16_lse_launches"],
+         dict(k1_bf16["fwd"], max_abs_err=bwd["bf16"]["worst"]["fwd"])),
+        ("flash_attention_bwd_bf16", "flash_attention.py:96",
+         trained_bf16["counts"]["bf16_backward_launches"],
+         dict(k1_bf16["bwd"], max_abs_err=bwd["bf16"]["worst"]["bwd"])),
+    ]
     sources = {"flash_attention": "flash_attention_bf16",
-               "flash_attention_fp32": "flash_attention"}
+               "flash_attention_fp32": "flash_attention",
+               "flash_attention_bf16_lse": "flash_attention_bf16"}
     kernels = [{
         "name": name,
         "route": "cuda",

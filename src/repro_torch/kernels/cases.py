@@ -3,7 +3,8 @@ plain version, in the tests and on the card.
 
 K1 (flash attention): a case is ``(B, Hq, Hkv, S, D, causal, window,
 dtype)``; bf16 cases run on its bf16 kernel, fp32 ones on its fp32
-kernel (3xTF32), and BACKWARD_CASES on its fp32 backward kernel.  K2
+kernel (3xTF32), BACKWARD_CASES on its fp32 backward kernel and
+BACKWARD_BF16_CASES on its bf16 backward kernel.  K2
 (decode attention): ``(B, Hq, Hkv, S, D, index, window, dtype)``.  K3
 (SSD scan): ``(b, S, H, P, N, chunk, dtype)``.  Dtypes are named as torch
 dtypes.
@@ -100,6 +101,44 @@ BACKWARD_CASES = [c for c in FLASH_CASES + RAGGED_CASES
 # most BACKWARD_LIMIT, K3's fp32 limit.  Both sides sum in fp32 in
 # different orders; set before the kernel's first run on the card.
 BACKWARD_LIMIT = 1e-4
+
+# K1's bf16 backward (csrc/flash_attention_bwd_bf16.cu): every bf16 shape
+# of FLASH_CASES, RAGGED_CASES and TENSOR_CORE_CASES, qwen2-0.5b's training
+# shape and its heads over 1024 tokens, qwen3-4b's heads (group 4, D 128)
+# and deepseek-moe-16b's (group 1, D 128) over 1024 tokens.
+BACKWARD_BF16_TRAIN_CASE = (8, 14, 2, 256, 64, True, None, "bfloat16")
+BACKWARD_BF16_LONG_CASE = (1, 14, 2, 1024, 64, True, None, "bfloat16")
+BACKWARD_BF16_WIDE_CASE = (1, 32, 8, 1024, 128, True, None, "bfloat16")
+BACKWARD_BF16_CASES = [c for c in FLASH_CASES + RAGGED_CASES
+                       + TENSOR_CORE_CASES if c[7] == "bfloat16"] + [
+    BACKWARD_BF16_TRAIN_CASE,
+    BACKWARD_BF16_LONG_CASE,
+    BACKWARD_BF16_WIDE_CASE,
+    (1, 16, 16, 1024, 128, True, None, "bfloat16"),
+]
+# Each of dq, dk and dv against the plain backward on the same bf16 inputs
+# (the fp32 gradient rounded to bf16 once): max_ratio at most
+# BACKWARD_BF16_LIMIT, and rms(got - want) at most BACKWARD_BF16_RMS_LIMIT
+# of rms(want), since both sides round to bf16 and mostly agree bit for
+# bit.  Set before the kernel's first run on the card at about 5x the worst
+# reading of a CPU model of its rounding against jax.grad of the JAX
+# model's flash_attention_jnp (tests/test_torch_kernels.py): bf16 operands,
+# fp32 sums per k16 step, P (in dV) and dS (in dK and dQ) split into bf16
+# hi and lo, delta from the forward's fp32 O: rms 7.0e-5 to 1.40e-4,
+# max_ratio 4.5e-4 to 2.70e-3.  Rounding P or dS to bf16 alone, or taking
+# delta from the bf16 O, reads 1.1e-3 to 2.7e-3 rms: each breaks the rms
+# limit, and each breaks MAIN_RMS_LIMIT, the bf16 forward's standard, which
+# decided the design.
+BACKWARD_BF16_LIMIT = 1.4e-2
+BACKWARD_BF16_RMS_LIMIT = 7e-4
+# A gradient that is exactly 0 in the plain version (dq and dk at S 1: the
+# one key takes all the weight, and the softmax's gradient vanishes) has no
+# scale of its own: max |got| at most BACKWARD_BF16_ZERO_ATOL, about 5x the
+# 6.3e-7 that the CPU model reads over five N(0, 1) draws (fp32 rounding of
+# dP - delta, two sums of the same products in different orders).  Added
+# after the kernel's first run on the card stopped at that case, before its
+# reading there was seen.
+BACKWARD_BF16_ZERO_ATOL = 3e-6
 
 
 # K2: the JAX package's DECODE_CASES (tests/test_kernels.py).
@@ -215,6 +254,23 @@ def max_ratio(got, want) -> float:
     else:
         got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
     return float(abs(got - want).max() / (abs(want).max() + 1e-9))
+
+
+def bf16_backward_check(got, want) -> tuple:
+    """(max_ratio, rms error over rms(want), within the limits) of a bf16
+    gradient against the plain version's, two torch tensors on any device.
+    Where the plain gradient is exactly 0 the readings are max |got| and
+    rms(got), held to BACKWARD_BF16_ZERO_ATOL."""
+    got, want = got.float(), want.float()
+    if float(want.abs().max()) == 0.0:
+        top = float(got.abs().max())
+        return (top, float(got.square().mean().sqrt()),
+                top <= BACKWARD_BF16_ZERO_ATOL)
+    ratio = max_ratio(got, want)
+    rms = float((got - want).square().mean().sqrt()
+                / want.square().mean().sqrt())
+    return (ratio, rms, ratio <= BACKWARD_BF16_LIMIT
+            and rms <= BACKWARD_BF16_RMS_LIMIT)
 
 
 def tolerance(dtype: str) -> dict:

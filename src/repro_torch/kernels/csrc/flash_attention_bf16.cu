@@ -51,6 +51,15 @@
 //   ex2 per score; a masked score is -1e30 in those units, which gives the
 //   same p = 0 (or the same uniform p of a row with nothing live yet, which
 //   a later live tile rescales to 0).
+// * A second entry point, odin_flash_attention_bf16_fwd_lse, is the
+//   forward of training: the template flag LSE also writes each row's
+//   log-sum-exp of its scaled scores, m + log(max(l, 1e-30)) in natural-log
+//   units (m ln 2 + log l from the base-2 m), and the fp32 output before
+//   its rounding to bf16, which the backward's delta = rowsum(dO o O)
+//   reads (from the bf16 O it costs about 1e-3 of dQ's and dK's rms, a
+//   CPU model of the backward shows; tests/test_torch_kernels.py).  Both
+//   are written at the end, where m, l and O are live anyway; the plain
+//   entry point's instantiation (LSE false) is the code it was.
 // * Blocks are ordered by their work: the grid's fastest axis is the query
 //   head (the heads of one KV group are adjacent and share its K/V tiles
 //   in L2), and the query tiles run from the last (with causal masks, the
@@ -78,6 +87,7 @@ constexpr int NT = 288;        // two consumer warpgroups + one producer warp
 constexpr int MAX_D = 128;
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 // A wait on an mbarrier that has not completed after this long means the
 // pipeline is broken: trap (a CUDA error) rather than hang the card.
 constexpr unsigned long long WATCHDOG_NS = 10000000000ull;
@@ -415,18 +425,20 @@ __device__ __forceinline__ void softmax_tile(
 }
 
 // Consumer warpgroup `cw` (0 or 1): rows q0 + 64 cw .. + 63 of the block.
+// With LSE, also each row's log-sum-exp (lse, from this head's row 0) and
+// the fp32 output (o32, rows of D floats from this head's row 0).
 //
 // Each turn on the tensor cores issues P V of the previous tile and Q K^T
 // of this one; the warpgroups take turns (ping-pong), so one's softmax
 // runs while the other's products do.  Every tile of the block's range is
 // computed (the masks zero what a warpgroup's rows do not see), so the
 // loop has no branch around its products.
-template <int DP>
+template <int DP, bool LSE>
 __device__ __forceinline__ void consume(
     const uint8_t* sQ, const uint8_t* sK, const uint8_t* sV, uint32_t bars,
     int cw, int q0, int kt_begin, int ntiles, int S, int D, int causal,
     int window, float scale_log2, __nv_bfloat16* __restrict__ ob,
-    long long oss) {
+    long long oss, float* __restrict__ lse, float* __restrict__ o32) {
   using L = Smem<DP>;
   constexpr int NO = DP / 2;          // accumulator registers of O
   const int t = threadIdx.x & 127;
@@ -504,6 +516,20 @@ __device__ __forceinline__ void consume(
     if (row0 + 8 < S)
       *reinterpret_cast<__nv_bfloat162*>(ob + (row0 + 8) * oss + c) =
           __floats2bfloat162_rn(o[4 * j + 2] / l1, o[4 * j + 3] / l1);
+    if constexpr (LSE) {
+      if (row0 < S)
+        *reinterpret_cast<float2*>(o32 + (long long)row0 * D + c) =
+            make_float2(o[4 * j] / l0, o[4 * j + 1] / l0);
+      if (row0 + 8 < S)
+        *reinterpret_cast<float2*>(o32 + (long long)(row0 + 8) * D + c) =
+            make_float2(o[4 * j + 2] / l1, o[4 * j + 3] / l1);
+    }
+  }
+  if constexpr (LSE) {
+    if ((lane & 3) == 0) {
+      if (row0 < S) lse[row0] = m0 * LN2 + logf(l0);
+      if (row0 + 8 < S) lse[row0 + 8] = m1 * LN2 + logf(l1);
+    }
   }
 }
 
@@ -525,14 +551,15 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* map, uint8_t* ring,
              (kt_begin + it) * BK, kvh, b);
 }
 
-template <int DP>
+template <int DP, bool LSE>
 __global__ void __launch_bounds__(NT, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
                __nv_bfloat16* __restrict__ o, int group, int S, int D,
                long long osb, long long osh, long long oss, int causal,
-               int window, float scale_log2) {
+               int window, float scale_log2, float* __restrict__ lse,
+               float* __restrict__ o32) {
   using L = Smem<DP>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -585,8 +612,10 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
       }
     }
   } else {
-    consume<DP>(sQ, sK, sV, bars, wg, q0, kt_begin, ntiles, S, D, causal,
-                window, scale_log2, o + b * osb + h * osh, oss);
+    const long long row = ((long long)b * gridDim.x + h) * S;  // lse, o32
+    consume<DP, LSE>(sQ, sK, sV, bars, wg, q0, kt_begin, ntiles, S, D,
+                     causal, window, scale_log2, o + b * osb + h * osh, oss,
+                     LSE ? lse + row : nullptr, LSE ? o32 + row * D : nullptr);
   }
 }
 
@@ -642,22 +671,47 @@ CUresult make_map(CUtensorMap* map, const void* ptr, int B, int H, int S,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int DP>
+template <int DP, bool LSE>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk,
-           const CUtensorMap& tv, void* o, int B, int Hq, int Hkv, int S,
-           int D, const long long* st, int causal, int window, float scale,
-           cudaStream_t stream) {
+           const CUtensorMap& tv, void* o, float* lse, float* o32, int B,
+           int Hq, int Hkv, int S, int D, const long long* st, int causal,
+           int window, float scale, cudaStream_t stream) {
   const int smem = Smem<DP>::BYTES;
   // Above 48 KB a kernel must opt in to dynamic shared memory; the opt-in
   // is per device, so it is made on every call (microseconds).
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_bf16<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_bf16<DP, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(Hq, (S + BQ - 1) / BQ, B);
-  flash_fwd_bf16<DP><<<grid, NT, smem, stream>>>(
+  flash_fwd_bf16<DP, LSE><<<grid, NT, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), Hq / Hkv, S, D, st[9],
-      st[10], st[11], causal, window, scale * LOG2E);
+      st[10], st[11], causal, window, scale * LOG2E, lse, o32);
   return (int)cudaGetLastError();
+}
+
+// Both entry points: check, build the tensor maps, launch.
+template <bool LSE>
+int forward(const void* q, const void* k, const void* v, void* o, void* lse,
+            void* o32, int B, int Hq, int Hkv, int S, int D,
+            const long long* strides, int causal, int window, float scale,
+            void* stream) {
+  if (D <= 0 || D > MAX_D || D % 8 != 0 || Hkv <= 0 || Hq % Hkv != 0 ||
+      S <= 0 || B <= 0)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  CUresult r = make_map(&tq, q, B, Hq, S, D, strides);
+  if (r == CUDA_SUCCESS) r = make_map(&tk, k, B, Hkv, S, D, strides + 3);
+  if (r == CUDA_SUCCESS) r = make_map(&tv, v, B, Hkv, S, D, strides + 6);
+  if (r != CUDA_SUCCESS) return -(int)r;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* fl = static_cast<float*>(lse);
+  float* fo = static_cast<float*>(o32);
+  if (D <= 64)
+    return launch<64, LSE>(tq, tk, tv, o, fl, fo, B, Hq, Hkv, S, D, strides,
+                           causal, window, scale, s);
+  return launch<128, LSE>(tq, tk, tv, o, fl, fo, B, Hq, Hkv, S, D, strides,
+                          causal, window, scale, s);
 }
 
 }  // namespace
@@ -673,20 +727,21 @@ int odin_flash_attention_bf16_fwd(const void* q, const void* k,
                                   int Hkv, int S, int D,
                                   const long long* strides, int causal,
                                   int window, float scale, void* stream) {
-  if (D <= 0 || D > MAX_D || D % 8 != 0 || Hkv <= 0 || Hq % Hkv != 0 ||
-      S <= 0 || B <= 0)
-    return (int)cudaErrorInvalidValue;
-  CUtensorMap tq, tk, tv;
-  CUresult r = make_map(&tq, q, B, Hq, S, D, strides);
-  if (r == CUDA_SUCCESS) r = make_map(&tk, k, B, Hkv, S, D, strides + 3);
-  if (r == CUDA_SUCCESS) r = make_map(&tv, v, B, Hkv, S, D, strides + 6);
-  if (r != CUDA_SUCCESS) return -(int)r;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 64)
-    return launch<64>(tq, tk, tv, o, B, Hq, Hkv, S, D, strides, causal,
-                      window, scale, s);
-  return launch<128>(tq, tk, tv, o, B, Hq, Hkv, S, D, strides, causal,
-                     window, scale, s);
+  return forward<false>(q, k, v, o, nullptr, nullptr, B, Hq, Hkv, S, D,
+                        strides, causal, window, scale, stream);
+}
+
+// The same, and also lse (fp32 [B, Hq, S], contiguous: each row's
+// log-sum-exp of its scaled scores) and o32 (fp32 [B, Hq, S, D],
+// contiguous: the output before its rounding to bf16).
+int odin_flash_attention_bf16_fwd_lse(const void* q, const void* k,
+                                      const void* v, void* o, void* lse,
+                                      void* o32, int B, int Hq, int Hkv,
+                                      int S, int D, const long long* strides,
+                                      int causal, int window, float scale,
+                                      void* stream) {
+  return forward<true>(q, k, v, o, lse, o32, B, Hq, Hkv, S, D, strides,
+                       causal, window, scale, stream);
 }
 
 // Dynamic shared memory a launch at head dim D asks for (bytes).

@@ -19,13 +19,19 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Naive full-materialisation softmax attention.
 
     q: [B, Hq, S, D]; k, v: [B, Hkv, S, D] -> [B, Hq, S, D] in q's dtype.
-    Scores in fp32, masked with -1e30, softmax in fp32.
+    Scores in fp32, masked with -1e30, softmax in fp32.  k and v are
+    widened before they are repeated over the group, so that under
+    autograd each of a group's query heads adds its share to dK and dV in
+    fp32 and the sum is rounded to the input's dtype once, as the JAX
+    model's ``flash_attention_jnp`` contracts the group in fp32 (repeated
+    in bf16, each share would round to bf16 before the sum: 2.6e-3 of dK's
+    rms at group 7).
     """
     B, Hq, S, D = q.shape
     group = Hq // k.shape[1]
-    k = k.repeat_interleave(group, dim=1)
-    v = v.repeat_interleave(group, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (D ** -0.5)
+    k = k.float().repeat_interleave(group, dim=1)
+    v = v.float().repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k) * (D ** -0.5)
     qp = torch.arange(S, device=q.device)[:, None]
     kp = torch.arange(S, device=q.device)[None, :]
     mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
@@ -35,7 +41,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask &= qp - kp < window
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v)
     return out.to(q.dtype)
 
 
@@ -46,7 +52,9 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     """The plain backward: (dq, dk, dv) of ``sum(flash_attention_ref(q, k,
     v) * do)`` by ``torch.autograd.grad`` through the fully materialised
     forward above.  Shapes as the forward's, ``do`` like q; each gradient
-    in its input's dtype."""
+    in its input's dtype: for bf16 inputs the fp32 gradient rounded to bf16
+    once, the gradient the JAX model takes of its ``flash_attention_jnp``
+    (``src/repro/models/attention.py``), which casts q, k and v to fp32."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         out = flash_attention_ref(*leaves, causal=causal, window=window)

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, init_normal, rms_norm
+from repro_torch.models.layers import apply_rope, init_normal, rms_norm, weight
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig,
@@ -49,9 +49,9 @@ def _project_qkv(params: dict, cfg: ModelConfig, x: torch.Tensor,
     """x: [B, S, d] -> q [B,S,nq,h], k/v [B,S,nkv,h] (normed, roped)."""
     B, S, _ = x.shape
     h = cfg.head_dim
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    q = x @ weight(params["wq"], x)
+    k = x @ weight(params["wk"], x)
+    v = x @ weight(params["wv"], x)
     if cfg.qkv_bias:
         q = q + params["bq"]
         k = k + params["bk"]
@@ -76,7 +76,7 @@ def _forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
                               v.transpose(1, 2), causal=cfg.causal,
                               window=cfg.sliding_window, impl=impl)
     out = out.transpose(1, 2).reshape(B, S, cfg.num_heads * cfg.head_dim)
-    return out @ params["wo"], k, v
+    return out @ weight(params["wo"], out), k, v
 
 
 def attention_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -137,4 +137,4 @@ def attention_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
                                cache["v"].transpose(1, 2), idx,
                                window=cfg.sliding_window, impl=impl)
     out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim)
-    return out @ params["wo"], cache
+    return out @ weight(params["wo"], out), cache

@@ -23,6 +23,19 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return (xf * scale.float()).to(x.dtype)
 
 
+def weight(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``w`` as a product with ``x`` reads it under JAX's type promotion:
+    upcast to ``x``'s dtype where ``x`` is the wider (fp32 embeddings
+    against bf16 weights), else as it is.  Read at the point of use, one
+    block at a time, so autograd's transpose of the cast rounds the
+    gradient back to ``w``'s dtype, as ``astype``'s does in JAX; the
+    parameter tree is never copied whole."""
+    if (w.dtype == x.dtype
+            or torch.promote_types(w.dtype, x.dtype) != x.dtype):
+        return w
+    return w.to(x.dtype)
+
+
 def init_rms_norm(dim: int, dtype=torch.float32, device="cuda",
                   lead: tuple = ()) -> dict:
     return {"scale": torch.ones(lead + (dim,), dtype=dtype, device=device)}
@@ -76,9 +89,10 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
 
 
 def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
-    h = x @ params["wi"]
-    g = x @ params["wg"]
-    return (F.silu(g) * h) @ params["wo"]
+    h = x @ weight(params["wi"], x)
+    g = x @ weight(params["wg"], x)
+    y = F.silu(g) * h
+    return y @ weight(params["wo"], y)
 
 
 # ---------------------------------------------------------------------------
@@ -103,7 +117,7 @@ def init_unembed(gen: torch.Generator, d_model: int, vocab: int,
 
 
 def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
-    return x @ params["w"]
+    return x @ weight(params["w"], x)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

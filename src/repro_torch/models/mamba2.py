@@ -16,7 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import init_normal, rms_norm
+from repro_torch.models.layers import init_normal, rms_norm, weight
 
 #: Leaves that the JAX ``init_mamba`` keeps in fp32 whatever the model's
 #: dtype (the SSM's decay, skip and step bias).
@@ -145,11 +145,11 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
 
 def _project(params: dict, x: torch.Tensor):
     """x: [B, S, d] -> z, xBC (pre-conv), dt."""
-    z = x @ params["wz"]
-    xs = x @ params["wx"]
-    Bm = x @ params["wB"]
-    Cm = x @ params["wC"]
-    dt = x @ params["wdt"]
+    z = x @ weight(params["wz"], x)
+    xs = x @ weight(params["wx"], x)
+    Bm = x @ weight(params["wB"], x)
+    Cm = x @ weight(params["wC"], x)
+    dt = x @ weight(params["wdt"], x)
     return z, torch.cat([xs, Bm, Cm], dim=-1), dt
 
 
@@ -213,7 +213,7 @@ def _mixer(params: dict, cfg: ModelConfig, x: torch.Tensor, impl: str):
     y = y + xs * params["D"].to(x.dtype)[None, None, :, None]
     y = y.reshape(B_, S, cfg.ssm.d_inner(d))
     y = rms_norm(y * F.silu(z), params["norm_scale"], cfg.rms_eps)
-    return y @ params["out_proj"], xBC_pre, state
+    return y @ weight(params["out_proj"], y), xBC_pre, state
 
 
 def mamba_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -261,7 +261,8 @@ def mamba_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
     z, xBC, dt = _project(params, x)
     # conv over the cached window + current token
     window = torch.cat([cache["conv"].to(xBC.dtype), xBC], dim=1)  # [B,K,Cd]
-    conv_out = (torch.einsum("bkc,kc->bc", window, params["conv_w"])
+    conv_w = weight(params["conv_w"], window)
+    conv_out = (torch.einsum("bkc,kc->bc", window, conv_w)
                 + params["conv_b"])[:, None, :]
     xBC = F.silu(conv_out)
 
@@ -274,7 +275,7 @@ def mamba_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
     y = y + xs * params["D"].to(x.dtype)[None, :, None]
     y = y.reshape(B_, 1, din)
     y = rms_norm(y * F.silu(z), params["norm_scale"], cfg.rms_eps)
-    out = y @ params["out_proj"]
+    out = y @ weight(params["out_proj"], y)
     cache["conv"].copy_(window[:, 1:])
     cache["ssm"].copy_(new_ssm)
     return out, cache

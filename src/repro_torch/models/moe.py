@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
-from repro_torch.models.layers import init_mlp, init_normal, mlp
+from repro_torch.models.layers import init_mlp, init_normal, mlp, weight
 
 #: Leaves that the JAX ``init_moe`` keeps in fp32 whatever the model's
 #: dtype (the router: its math stays fp32).
@@ -125,9 +125,10 @@ def moe_forward(params: dict, m: MoEConfig, x: torch.Tensor,
     buf = torch.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), xg)
 
     # Expert matmuls batched over groups: [G,E,C,d] x [E,d,f].
-    h = torch.einsum("gecd,edf->gecf", buf, params["wi"])
-    g = torch.einsum("gecd,edf->gecf", buf, params["wg"])
-    y = torch.einsum("gecf,efd->gecd", F.silu(g) * h, params["wo"])
+    h = torch.einsum("gecd,edf->gecf", buf, weight(params["wi"], buf))
+    g = torch.einsum("gecd,edf->gecf", buf, weight(params["wg"], buf))
+    a = F.silu(g) * h
+    y = torch.einsum("gecf,efd->gecd", a, weight(params["wo"], a))
 
     out = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), y)
     out = out.reshape(B, S, d)

@@ -62,14 +62,16 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig, remat: bool = True,
     return train_step
 
 
-def to_batch(batch: Dict, device: torch.device,
-             dtype=torch.float32) -> Dict[str, torch.Tensor]:
+def to_batch(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
     """A batch of numpy arrays (``training/data.py``) on ``device``: integer
-    arrays as int64 indices, float arrays (embeddings) in ``dtype``."""
+    arrays as int64 indices, float arrays (embeddings) in their own dtype,
+    as the JAX loop's ``jnp.asarray`` keeps them.  fp32 embeddings against
+    bf16 weights then run the blocks in fp32 (``models.layers.weight``),
+    as JAX's type promotion does."""
     out = {}
     for k, v in batch.items():
         t = torch.as_tensor(np.asarray(v))
-        out[k] = t.to(device=device, dtype=(dtype if t.is_floating_point()
+        out[k] = t.to(device=device, dtype=(t.dtype if t.is_floating_point()
                                             else torch.int64))
     return out
 
@@ -98,7 +100,7 @@ def train(cfg: ModelConfig, opt: AdamWConfig, data_iter, num_steps: int,
         if step >= num_steps:
             break
         params, opt_state, metrics = step_fn(params, opt_state,
-                                             to_batch(batch, dev, dtype))
+                                             to_batch(batch, dev))
         if step % log_every == 0 or step == num_steps - 1:
             m = {k: float(v) for k, v in metrics.items()}
             m["step"] = step

@@ -13,6 +13,7 @@ import numpy as np  # noqa: E402
 
 from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
+from repro.models.attention import flash_attention_jnp  # noqa: E402
 from repro.models import mamba2 as jax_mamba  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
@@ -30,6 +31,10 @@ from repro_torch.kernels.ref import (  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.models import mamba2 as port_mamba  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
+    BACKWARD_BF16_CASES,
+    BACKWARD_BF16_LIMIT,
+    BACKWARD_BF16_RMS_LIMIT,
+    BACKWARD_BF16_TRAIN_CASE,
     BACKWARD_CASES,
     BACKWARD_LIMIT,
     BACKWARD_TRAIN_CASE,
@@ -54,6 +59,7 @@ from repro_torch.kernels.cases import (  # noqa: E402
     SSD_RAGGED_CASES,
     SSD_STATE_RMS_LIMIT,
     TENSOR_CORE_CASES,
+    bf16_backward_check,
     case_id,
     decode_case_id,
     max_ratio,
@@ -767,11 +773,15 @@ def test_ops_flash_attention_is_differentiable_on_cpu(impl):
     assert g.shape == q.shape and bool(torch.isfinite(g).all())
 
 
-@pytest.mark.parametrize("case", BACKWARD_CASES, ids=case_id)
+@pytest.mark.parametrize("case", BACKWARD_CASES + BACKWARD_BF16_CASES,
+                         ids=case_id)
 def test_backward_cases_are_well_formed(case):
-    """The kernel's shapes: fp32, D <= 128 with D % 4 == 0, GQA."""
+    """The kernels' shapes: fp32 with D % 4 == 0 (BACKWARD_CASES) or bf16
+    with D % 8 == 0 (BACKWARD_BF16_CASES), D <= 128, GQA."""
     B, Hq, Hkv, S, D, causal, window, dtype = case
-    assert dtype == "float32" and D <= 128 and D % 4 == 0 and Hq % Hkv == 0
+    multiple = 4 if case in BACKWARD_CASES else 8
+    assert dtype == ("float32" if multiple == 4 else "bfloat16")
+    assert D <= 128 and D % multiple == 0 and Hq % Hkv == 0
     assert window is None or 1 <= window
 
 
@@ -781,6 +791,11 @@ def test_backward_cases_cover_the_training_shape_and_its_corners():
     assert any(c[6] is not None and c[6] < 32 for c in BACKWARD_CASES)
     assert any(c[3] % 32 for c in BACKWARD_CASES)              # ragged S
     assert BACKWARD_LIMIT == 1e-4
+    assert BACKWARD_BF16_TRAIN_CASE in BACKWARD_BF16_CASES
+    assert {c[:7] for c in BACKWARD_BF16_CASES} >= {
+        c[:7] for c in FLASH_CASES + RAGGED_CASES + TENSOR_CORE_CASES
+        if c[7] == "bfloat16"}
+    assert {c[2] for c in BACKWARD_BF16_CASES} >= {1, 2, 8, 16}
 
 
 # -- K1's fp32 route on the tensor cores: a model of its rounding ----------
@@ -943,3 +958,172 @@ def test_fp32_backward_rounding_meets_backward_limit_only_with_split(case,
                                terms)
     ratios = [max_ratio(g.numpy(), np.asarray(w)) for g, w in zip(got, want)]
     assert (max(ratios) <= BACKWARD_LIMIT) == (terms == 3), ratios
+
+
+# -- K1's bf16 backward: the plain version and a model of its rounding ----
+#
+# The JAX package differentiates its jnp flash_attention_jnp, which casts
+# q, k and v to fp32 and the output back: for bf16 inputs its gradient is
+# the fp32 gradient rounded to bf16 once.  (Its kernels/ref.py repeats k and
+# v over the group in bf16, so its dK and dV round each head's share before
+# the sum: 2.6e-3 of their rms at group 7.)
+
+# The JAX test's bf16 shape, a window below one tile at D 128, and a
+# bidirectional ragged S.
+BWD_BF16_JAX_CASES = [FLASH_CASES[6], TENSOR_CORE_CASES[5],
+                      TENSOR_CORE_CASES[6]]
+
+
+def _bf16_inputs(case, seed: int) -> tuple:
+    """(JAX bf16 q, k, v, dO; the same as torch bf16 tensors)."""
+    B, Hq, Hkv, S, D = case[:5]
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in (
+        (B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D), (B, Hq, S, D))]
+    return ([jnp.asarray(a).astype(jnp.bfloat16) for a in arrs],
+            [torch.from_numpy(a).to(torch.bfloat16) for a in arrs])
+
+
+def _jnp_grad(jq, jk, jv, jdo, causal, window) -> tuple:
+    """jax.grad of sum(flash_attention_jnp(q, k, v) * dO), in its
+    [B, S, H, D] layout, one chunk of S rows."""
+    S = jq.shape[2]
+    tr = functools.partial(jnp.swapaxes, axis1=1, axis2=2)
+
+    def objective(a, b, c):
+        out = flash_attention_jnp(tr(a), tr(b), tr(c), causal=causal,
+                                  window=window, chunk_q=S, chunk_k=S)
+        return jnp.sum((tr(out) * jdo).astype(jnp.float32))
+
+    return jax.grad(objective, argnums=(0, 1, 2))(jq, jk, jv)
+
+
+def _torch32(a) -> torch.Tensor:
+    """A JAX array as an fp32 torch tensor."""
+    return torch.from_numpy(np.asarray(a, np.float32))
+
+
+@pytest.mark.parametrize("case", BWD_BF16_JAX_CASES, ids=case_id)
+def test_flash_attention_bwd_ref_matches_jax_grad_bf16(case):
+    """flash_attention_bwd_ref on bf16 inputs against jax.grad of the JAX
+    model's attention on the same inputs: each gradient bf16, within about
+    one bf16 ulp of max |want| and 1e-4 of its rms (readings: 4.8e-5 rms,
+    1.2e-3 max; two fp32 sums in different orders, rounded once)."""
+    B, Hq, Hkv, S, D, causal, window, dtype = case
+    (jq, jk, jv, jdo), (q, k, v, do) = _bf16_inputs(case, seed=23)
+    want = _jnp_grad(jq, jk, jv, jdo, causal, window)
+    got = flash_attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+    for name, t, g, w in zip(("dq", "dk", "dv"), (q, k, v), got, want):
+        assert g.shape == t.shape and g.dtype == torch.bfloat16, name
+        assert max_ratio(g.float().numpy(), np.asarray(w, np.float32)) \
+            <= 2.0 ** -8, name
+        assert _rms_ratio(g, _torch32(w)) <= 1e-4, name
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _bf16_product(a: torch.Tensor, b: torch.Tensor, split: bool,
+                  acc=None) -> torch.Tensor:
+    """``acc + a @ b`` as the bf16 kernel takes it: bf16 operands (b is
+    exact in bf16), k-slices of 16 in order, each added into an fp32
+    accumulator; with ``split`` the fp32 ``a`` runs as bf16 hi and lo, lo
+    first."""
+    hi = _bf16(a)
+    terms = [_bf16(a - hi), hi] if split else [hi]
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:]) if acc is None else acc
+    for k0 in range(0, a.shape[-1], 16):
+        for t in terms:
+            out = out + t[..., k0:k0 + 16] @ b[..., k0:k0 + 16, :]
+    return out
+
+
+def _bf16_route_backward(q, k, v, do, causal, window, split_p: bool,
+                         split_ds: bool, fp32_o: bool) -> tuple:
+    """The bf16 backward kernel's arithmetic on the CPU: S and dP from the
+    bf16 operands in fp32, P rebuilt from the forward's row log-sum-exp,
+    delta = rowsum(dO o O) from the fp32 O (``fp32_o``) or the bf16 one, P
+    (in dV) and dS (in dK and dQ) split into bf16 hi and lo or rounded to
+    bf16 alone, dK and dV summed over a GQA group in head order in fp32.
+    Returns bf16 (dq, dk, dv)."""
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    group = Hq // Hkv
+    scale = D ** -0.5
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(group, 1)
+    vf = v.float().repeat_interleave(group, 1)
+    keep = _mask(S, causal, window)
+    s = _bf16_product(qf, kf.transpose(-1, -2), False) * scale
+    s = torch.where(keep, s, torch.tensor(-1e30))
+    lse = torch.logsumexp(s, -1, keepdim=True)
+    p = torch.where(keep, torch.exp(s - lse), torch.zeros(()))
+    o = p @ vf
+    delta = (dof * (o if fp32_o else _bf16(o))).sum(-1, keepdim=True)
+    ds = p * (_bf16_product(dof, vf.transpose(-1, -2), False) - delta)
+    dq = _bf16_product(ds, kf, split_ds) * scale
+    dk = _bf16_product(ds.transpose(-1, -2), qf, split_ds) * scale
+    dv = _bf16_product(p.transpose(-1, -2), dof, split_p)
+    dk = dk.reshape(B, Hkv, group, S, D)
+    dv = dv.reshape(B, Hkv, group, S, D)
+    dk_sum, dv_sum = dk[:, :, 0], dv[:, :, 0]
+    for g in range(1, group):
+        dk_sum, dv_sum = dk_sum + dk[:, :, g], dv_sum + dv[:, :, g]
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk_sum, dv_sum))
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_design_case(case) -> tuple:
+    """(torch bf16 q, k, v, dO; jax.grad of the JAX model's attention)."""
+    (jq, jk, jv, jdo), inputs = _bf16_inputs(case, seed=21)
+    return inputs, _jnp_grad(jq, jk, jv, jdo, *case[5:7])
+
+
+# (split_p, split_ds, fp32_o): the kernel's design first, then each of the
+# roundings it rejects.
+BF16_BWD_DESIGNS = {"split_fp32_o": (True, True, True),
+                    "bf16_o": (True, True, False),
+                    "bf16_p": (False, True, True),
+                    "bf16_ds": (True, False, True)}
+
+
+@pytest.mark.parametrize("design", sorted(BF16_BWD_DESIGNS))
+@pytest.mark.parametrize("case", [BACKWARD_BF16_TRAIN_CASE, RAGGED_CASES[2]],
+                         ids=case_id)
+def test_bf16_backward_rounding_meets_limits_only_as_designed(case, design):
+    """dq, dk and dv with the bf16 backward's rounding against jax.grad of
+    the JAX model's attention: with P and dS split and delta from the fp32
+    O, each within BACKWARD_BF16_LIMIT and BACKWARD_BF16_RMS_LIMIT (and
+    MAIN_RMS_LIMIT); with any one of them rounded as the bf16 forward's
+    output is, some gradient outside the rms limit."""
+    (q, k, v, do), want = _bf16_design_case(case)
+    got = _bf16_route_backward(q, k, v, do, *case[5:7],
+                               *BF16_BWD_DESIGNS[design])
+    rms = [_rms_ratio(g, _torch32(w)) for g, w in zip(got, want)]
+    ratios = [max_ratio(g.float().numpy(), np.asarray(w, np.float32))
+              for g, w in zip(got, want)]
+    if design == "split_fp32_o":
+        assert max(ratios) <= BACKWARD_BF16_LIMIT, ratios
+        assert max(rms) <= min(BACKWARD_BF16_RMS_LIMIT, MAIN_RMS_LIMIT), rms
+    else:
+        assert max(rms) > BACKWARD_BF16_RMS_LIMIT, rms
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_bf16_backward_rounding_at_one_key(seed):
+    """At S 1 the one key takes all the weight: the plain dq and dk are
+    exactly 0 and dv is dO; the model of the kernel's rounding leaves dq
+    and dk within BACKWARD_BF16_ZERO_ATOL (fp32 rounding of dP - delta) and
+    dv within the limits."""
+    case = TENSOR_CORE_CASES[2]
+    assert case[3] == 1 and case in BACKWARD_BF16_CASES
+    _, (q, k, v, do) = _bf16_inputs(case, seed)
+    got = _bf16_route_backward(q, k, v, do, *case[5:7],
+                               *BF16_BWD_DESIGNS["split_fp32_o"])
+    want = flash_attention_bwd_ref(q, k, v, do, causal=case[5],
+                                   window=case[6])
+    assert [float(w.float().abs().max()) == 0.0 for w in want] == [
+        True, True, False]
+    for g, w in zip(got, want):
+        assert bf16_backward_check(g, w)[2]

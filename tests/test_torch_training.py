@@ -78,10 +78,12 @@ def _batch(cfg, seed=0):
     return data.SyntheticLM(cfg.vocab_size, SEQ, BATCH, seed=seed).batch_at(0)
 
 
-def _jax_init(cfg, seed=0):
-    params = JaxModel(cfg).init_params(jax.random.PRNGKey(seed), jnp.float32)
+def _jax_init(cfg, seed=0, dtype=jnp.float32):
+    """(JAX params, the port's copy) from the JAX init in ``dtype``."""
+    params = JaxModel(cfg).init_params(jax.random.PRNGKey(seed), dtype)
+    tdtype = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
     return params, params_from_jax(jax.tree.map(np.asarray, params),
-                                   device="cpu")
+                                   dtype=tdtype, device="cpu")
 
 
 # -- optimizer ----------------------------------------------------------------
@@ -205,6 +207,55 @@ def test_loss_and_grads_match_jax(arch):
             k, err, _rms(want[k]))
 
 
+# bf16 weights (the JAX init in bf16, bridged as they are) against
+# jax.value_and_grad: (loss rtol, each leaf's rms error over its rms).
+# qwen2-0.5b runs its blocks in bf16 in both packages, which round at other
+# places: readings 2.2e-5 in the loss and 1.5e-2 of a leaf's rms (``bk``),
+# JAX's own bf16-vs-fp32 gap on the same weights (1.2e-4, 1.4e-2).
+# hubert-xlarge's fp32 embeddings promote every block to fp32 against the
+# bf16 weights in both, so it is held at the fp32 loss limit, and each leaf
+# (an fp32 gradient rounded to bf16 by the cast's transpose) within one
+# bf16 ulp of its rms.
+BF16_LIMITS = {"qwen2-0.5b": (2e-4, 5e-2),
+               "hubert-xlarge": (LOSS_RTOL, 2.0 ** -8)}
+
+
+@pytest.mark.parametrize("arch", sorted(BF16_LIMITS))
+def test_bf16_loss_and_grads_match_jax(arch):
+    """Model.loss and every gradient leaf in bf16 against
+    jax.value_and_grad of the JAX model's loss on the same bf16 weights and
+    batch; each gradient leaf in its weight's dtype."""
+    loss_rtol, grad_limit = BF16_LIMITS[arch]
+    cfg = get_smoke_config(arch)
+    jparams, tparams = _jax_init(jax_smoke(arch), dtype=jnp.bfloat16)
+    batch = _batch(cfg)
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(
+        JaxModel(jax_smoke(arch)).loss, has_aux=True))(
+        jparams, jax.tree.map(jnp.asarray, batch))
+    (tloss, _), tgrads = loss_and_grads(Model(cfg), tparams,
+                                        to_batch(batch, "cpu"))
+    assert float(tloss) == pytest.approx(float(jloss), rel=loss_rtol)
+    for g, p in zip(opt.leaves(tgrads), opt.leaves(tparams)):
+        assert g.dtype == p.dtype
+    got, want = _flat_np(tgrads), _flat_np(jax.tree.map(np.asarray, jgrads))
+    assert got.keys() == want.keys()
+    for k in got:
+        err = _rms(got[k] - want[k])
+        assert err <= grad_limit * _rms(want[k]) or err == 0.0, (
+            k, err, _rms(want[k]))
+
+
+def test_to_batch_keeps_float_arrays_in_their_dtype():
+    """fp32 embeddings stay fp32 (``jnp.asarray`` keeps them); integer
+    arrays become int64 indices."""
+    emb = data.SyntheticEmbeds(16, 50, 8, 2).batch_at(0)
+    lm = data.SyntheticLM(50, 8, 2).batch_at(0)
+    got = {**to_batch(emb, "cpu"), "tokens": to_batch(lm, "cpu")["tokens"]}
+    assert got["embeds"].dtype == torch.float32
+    assert got["labels"].dtype == got["tokens"].dtype == torch.int64
+    assert torch.equal(got["embeds"], torch.from_numpy(emb["embeds"]))
+
+
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "jamba-1.5-large-398b"])
 def test_remat_gives_the_same_grads(arch):
     cfg = get_smoke_config(arch)
@@ -318,6 +369,26 @@ def test_train_history_matches_jax():
                   "dropped_frac"):
             assert g[k] == pytest.approx(w[k], rel=1e-4, abs=1e-6), k
     assert int(got["opt_state"]["count"]) == 3
+
+
+def test_bf16_train_history_matches_jax():
+    """3 steps of qwen2-0.5b smoke in bf16 from the same bf16 weights and
+    data: the logged metrics against JAX train(dtype=jnp.bfloat16)'s, to
+    1e-3 (readings 1.2e-4 in the loss, 3.4e-4 in grad_norm)."""
+    cfg = get_smoke_config("qwen2-0.5b")
+    jparams, tparams = _jax_init(jax_smoke("qwen2-0.5b"), dtype=jnp.bfloat16)
+    kw = dict(lr=1e-3, warmup_steps=1, total_steps=3)
+    stream = lambda: iter(data.SyntheticLM(cfg.vocab_size, SEQ, 4, seed=2))  # noqa: E731
+    want = jax_train(jax_smoke("qwen2-0.5b"), JaxAdamWConfig(**kw), stream(),
+                     3, dtype=jnp.bfloat16, params=jparams, log_every=1,
+                     log_fn=lambda *_: None)
+    got = train(cfg, AdamWConfig(**kw), stream(), 3, dtype=torch.bfloat16,
+                device="cpu", params=tparams, log_every=1,
+                log_fn=lambda *_: None)
+    assert all(p.dtype == torch.bfloat16 for p in opt.leaves(got["params"]))
+    for g, w in zip(got["history"], want["history"]):
+        for k in ("loss", "ce", "grad_norm", "lr"):
+            assert g[k] == pytest.approx(w[k], rel=1e-3, abs=1e-6), k
 
 
 def test_train_loss_decreases():
