@@ -18,8 +18,9 @@ time.
    backwards' launches and of K3's three launches (with their grids at
    mamba2-370m's shape); the TF32 tensor-core instructions
    (``HMMA.1688.F32.TF32`` in ``cuobjdump -sass``) of each fp32 kernel and
-   the bf16 ones (``HMMA.16816.F32.BF16``) of the bf16 backward's tile
-   kernels, which must not be 0.
+   the wgmma ones (``HGMMA``) of the bf16 backward's tile kernels, which
+   must not be 0, with those kernels' threads, registers and dynamic
+   shared memory; ptxas must report no spill in them.
 3. K1 (flash attention) against its plain version on the card, at the
    shapes and tolerances of ``repro_torch.kernels.cases``: the JAX
    package's FLASH_CASES shapes in fp32 (tolerance 2e-5; the fp32 kernel,
@@ -189,10 +190,12 @@ time.
       (``max_batch`` 4, through ``run_batch``).  Every query is served
       exactly once, and odin_aware routes fewer queries to replica 2 than
       round_robin;
-   b. the same fleet at 2x that rate under slo_shed (an SLO of 3 probe
-      services), then queue_cap, and one engine under slo_shed: queries
-      are shed, served + shed = offered, and the executors run exactly
-      the served queries;
+   b. the fleet's own capacity C, the completion rate of a drained burst
+      of 48 queries through 4 fresh replicas (odin_aware); the fleet at
+      2 max(C, R) under slo_shed (an SLO of 3 probe services), then queue_cap, and one
+      engine under slo_shed at 2x one replica's probe rate: queries are
+      shed, served + shed = offered, and the executors run exactly the
+      served queries;
    c. 2 qwen3-4b and 2 qwen2-0.5b replicas (pool ``small``), tiers
       interactive and best_effort, overloaded: downgrade with value_shed,
       then edf.  The summary has every per-tier key, only best_effort is
@@ -228,11 +231,12 @@ time.
       BACKWARD_BF16_RMS_LIMIT of its rms (BACKWARD_BF16_ZERO_ATOL where
       the plain gradient is exactly 0), the bf16 LSE entry's output
       bit-equal to the plain entry point's and its LSE the rows'
-      log-sum-exp of the plain fp32 scores to 1e-4; both timed at (8, 14,
-      2, 256, 64), (1, 14, 2, 1024, 64) and (1, 32, 8, 1024, 128) beside
-      the plain version, bf16 sdpa and autograd's backward of it, the bound
-      (the needed products at the bf16 peak, or the bytes) and the
-      executed TFLOP/s;
+      log-sum-exp of the plain fp32 scores to 1e-4; two backward calls
+      give the same bits; both timed at (8, 14, 2, 256, 64), (1, 14, 2,
+      1024, 64) and (1, 32, 8, 1024, 128) beside the plain version, bf16
+      sdpa and autograd's backward of it, the bound (the needed products
+      at the bf16 peak, or the bytes) and the executed TFLOP/s, with the
+      delta launch alone;
    b. full-width qwen2-0.5b (24 blocks, 0.63 B parameters) in fp32 with
       remat per block, batches of ``SyntheticLM(vocab, 256, 8, seed=0)``:
       step 0's loss and every gradient leaf with K1 against the same with
@@ -500,10 +504,12 @@ MDB_REPEATS = 3
 # R = FLEET_REPLICAS / s), since every replica runs on this one card.
 # 12a: bursty at FLEET_LOAD x R, SLOW_FACTOR on stage SLOW_EP of replica
 # FLEET_SLOW_REPLICA, FLEET_QUERIES queries (SHORT_QUERIES with fleet
-# rebatching); 12b: poisson at FLEET_OVERLOAD x R, slo_shed at
-# FLEET_SLO_SERVICES x s over FLEET_QUERIES, queue_cap FLEET_QUEUE_CAP and
-# one engine under slo_shed over SHORT_QUERIES; 12c: 2 qwen3-4b and 2
-# SMALL_ARCH replicas at FLEET_OVERLOAD x R, SHORT_QUERIES; 12d:
+# rebatching); 12b: poisson at FLEET_OVERLOAD x max(C, R), C the fleet's
+# measured capacity (see BURST_RATE), slo_shed at FLEET_SLO_SERVICES x s over
+# FLEET_QUERIES, queue_cap FLEET_QUEUE_CAP, and one engine under slo_shed
+# at FLEET_OVERLOAD x R / FLEET_REPLICAS over SHORT_QUERIES; 12c: 2
+# qwen3-4b and 2 SMALL_ARCH replicas at FLEET_OVERLOAD x R, SHORT_QUERIES;
+# 12d:
 # FAULT_QUERIES poisson arrivals at FAULT_LOAD x R, replica 0 down
 # FAULT_CRASH_SERVICES x s from the arrival of query FAULT_QUERIES // 4,
 # flaky at p FAULT_FLAKY_P throughout, and one engine under the
@@ -516,6 +522,12 @@ FLEET_REPLICAS, FLEET_PROBE_QUERIES = 4, 10
 FLEET_QUERIES, SHORT_QUERIES = 96, 48
 FLEET_SLOW_REPLICA, FLEET_LOAD, FLEET_MAX_BATCH = 2, 0.8, 4
 FLEET_OVERLOAD, FLEET_SLO_SERVICES, FLEET_QUEUE_CAP = 2.0, 3.0, 2
+# 12b's overload is FLEET_OVERLOAD x the larger of R and the fleet's own
+# capacity C, the completion rate of a drained burst (poisson at
+# BURST_RATE: every arrival within a millisecond) through the fleet as 12b
+# routes it; C alone read 0.89-1.32 R on the H100, so the larger of the
+# two never offers less than FLEET_OVERLOAD x either.
+BURST_RATE = 1e5
 SMALL_ARCH = "qwen2-0.5b"
 FAULT_QUERIES, FAULT_LOAD, FAULT_CRASH_SERVICES = 64, 0.4, 10.0
 FAULT_FLAKY_P, FAULT_RETRIES, FAULT_HEDGE_SERVICES = 0.1, 3, 2.0
@@ -736,7 +748,7 @@ def kernel_label(mangled: str) -> str:
 def hmma_counts(name: str, op: str) -> dict:
     """Each kernel of ``csrc/<name>.cu``'s library (mangled name) -> its
     tensor-core instructions ``op`` in ``cuobjdump -sass``: TF32 m16n8k8
-    (``HMMA.1688.F32.TF32``) or bf16 m16n8k16 (``HMMA.16816.F32.BF16``)."""
+    (``HMMA.1688.F32.TF32``) or Hopper's wgmma (``HGMMA``)."""
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass",
                            str(build.lib_path(name))], capture_output=True,
@@ -2918,15 +2930,40 @@ def phase_routers(cfg, params, ex, counters, queries, probe) -> dict:
     return dict(to_slow=to_slow)
 
 
+def fleet_capacity(cfg, params, ex, counters, queries) -> float:
+    """The fleet's own capacity, measured: FLEET_REPLICAS fresh replicas
+    routed as 12b routes them (odin_aware, no admission) drain a burst of
+    SHORT_QUERIES queries that all arrive at once (poisson at
+    BURST_RATE); the capacity is the burst's completion rate."""
+    trace, s, _ = serve_fleet(
+        "12b capacity, a drained burst", fleet_engines(
+            cfg, params, ex, FLEET_REPLICAS), queries[:SHORT_QUERIES],
+        fleet_schedules(FLEET_REPLICAS), counters, router="odin_aware",
+        workload="poisson", workload_kwargs=dict(rate=BURST_RATE, seed=4))
+    if trace.num_shed or int(s["num_failed"]):
+        raise AssertionError("12b capacity: queries shed or failed")
+    return float(s["achieved_load_qps"])
+
+
 def phase_admission(cfg, params, ex, counters, queries, probe) -> dict:
-    """12b: the fleet at FLEET_OVERLOAD x the probe's rate under slo_shed
-    (an SLO of FLEET_SLO_SERVICES probe services), then queue_cap; then
-    one engine under slo_shed at FLEET_OVERLOAD x one replica's rate."""
+    """12b: the fleet at FLEET_OVERLOAD x the larger of its own capacity C
+    (measured here by :func:`fleet_capacity`) and the probe's R, under
+    slo_shed (an SLO of FLEET_SLO_SERVICES probe services), then
+    queue_cap; then one engine under slo_shed at FLEET_OVERLOAD x one
+    replica's rate (R / FLEET_REPLICAS).  R = FLEET_REPLICAS / s from the
+    one-replica probe assumes the fleet serves FLEET_REPLICAS queries at a
+    time, and the fleet has kept up with 2R on the card, so C is measured
+    on the fleet itself; taking the larger of the two means the overload
+    never falls below either."""
     slo = FLEET_SLO_SERVICES * probe["service"]
+    capacity = fleet_capacity(cfg, params, ex, counters, queries)
+    base = max(capacity, probe["rate"])
     wl = dict(workload="poisson", workload_kwargs=dict(
-        rate=FLEET_OVERLOAD * probe["rate"], seed=2))
-    log(f"  poisson at {FLEET_OVERLOAD} x R = "
-        f"{FLEET_OVERLOAD * probe['rate']:.2f} q/s; slo_shed's SLO "
+        rate=FLEET_OVERLOAD * base, seed=2))
+    log(f"  fleet capacity C = {capacity:.2f} q/s (the probe's R = "
+        f"{probe['rate']:.2f} q/s, C / R = {capacity / probe['rate']:.2f}); "
+        f"poisson at {FLEET_OVERLOAD} x max(C, R) = "
+        f"{FLEET_OVERLOAD * base:.2f} q/s; slo_shed's SLO "
         f"{1e3 * slo:.2f} ms")
     sheds = {}
     for label, kw in (("slo_shed", dict(admission="slo_shed",
@@ -2944,6 +2981,7 @@ def phase_admission(cfg, params, ex, counters, queries, probe) -> dict:
         sheds[label] = trace.num_shed
     if not sheds["slo_shed"] > 0:
         raise AssertionError("slo_shed shed nothing at 2x the fleet rate")
+    sheds["capacity_qps"] = capacity
 
     eng = fleet_engines(cfg, params, ex, 1)[0]
     n = SHORT_QUERIES
@@ -3306,22 +3344,47 @@ def bf16_fwd_work(B, Hq, Hkv, S, D, causal, window) -> tuple:
 
 def bf16_bwd_work(B, Hq, Hkv, S, D, causal, window) -> tuple:
     """K1's bf16 backward: (operations it needs, operations it executes,
-    bytes).  It needs five products over the kept pairs; it executes six
-    for each (64-key, 32-query) tile pair of its dK/dV blocks (S, dP, dV
-    and dK as hi and lo) and four for each (64-query, 32-key) pair of its
-    dQ blocks (S, dP, dQ as hi and lo), over the padded width.  Bytes: what
-    the function needs, bf16 q, k, v, o and dO and the fp32 lse read once,
-    bf16 dq, dk and dv written once (the kernel reads the fp32 o in place
-    of the bf16 one: its cost shows as kernel time over the bound)."""
+    bytes).  It needs five products over the kept pairs.  Its blocks fix
+    128 rows, 64 a warpgroup, and stream tiles of 64; each warpgroup runs
+    the streamed tiles its own rows see, six products for each (64-key,
+    64-query) pair of a dK/dV warpgroup (S^T, dP^T, dV and dK as hi and
+    lo) and four for each (64-query, 64-key) pair of a dQ warpgroup (S,
+    dP, dQ as hi and lo), over the padded width.  Bytes: what the function
+    needs, bf16 q, k, v, o and dO and the fp32 lse read once, bf16 dq, dk
+    and dv written once (the kernel reads the fp32 o in place of the bf16
+    one: its cost shows as kernel time over the bound)."""
     needed = 5 * 2 * B * Hq * attention_pairs(S, causal, window) * D
-    kv_pairs = sum(len(query_tiles(S, k0, 64, 32, causal, window))
-                   for k0 in range(0, S, 64))
-    q_pairs = sum(len(key_tiles(S, q0, 64, 32, causal, window))
-                  for q0 in range(0, S, 64))
-    executed = (2 * 64 * 32 * fp32_width(D) * B * Hq
+    kv_pairs = sum(len(query_tiles(S, r0, 64, 64, causal, window))
+                   for r0 in range(0, S, 64))
+    q_pairs = sum(len(key_tiles(S, r0, 64, 64, causal, window))
+                  for r0 in range(0, S, 64))
+    executed = (2 * 64 * 64 * fp32_width(D) * B * Hq
                 * (6 * kv_pairs + 4 * q_pairs))
     nbytes = 2 * B * S * D * (4 * Hq + 4 * Hkv) + 4 * B * Hq * S
     return needed, executed, nbytes
+
+
+def bf16_delta_launch(o32, do, Hkv: int):
+    """A function that launches the bf16 backward's launch 1 (delta =
+    rowsum(dO o O)) alone, through the library's C entry point, for
+    timing; it counts no launch of the wrapper's."""
+    lib = build.load("flash_attention_bwd_bf16")
+    fn = lib.odin_flash_attention_bwd_bf16_delta
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    B, Hq, S, D = do.shape
+    delta = torch.empty((B, Hq, S), dtype=torch.float32, device=do.device)
+    strides = (ctypes.c_longlong * 3)(*(do.stride(i) for i in (0, 1, 2)))
+
+    def launch():
+        err = fn(o32.data_ptr(), do.data_ptr(), delta.data_ptr(), B, Hq,
+                 Hkv, S, D, ctypes.addressof(strides),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the bf16 backward's delta launch failed: "
+                               f"CUDA error {err}")
+    return launch
 
 
 def masked_lse(q, k, causal: bool, window) -> torch.Tensor:
@@ -3341,9 +3404,10 @@ def masked_lse(q, k, causal: bool, window) -> torch.Tensor:
 def backward_bf16_check(gen) -> dict:
     """13a in bf16: K1's bf16 backward (csrc/flash_attention_bwd_bf16.cu)
     against the plain backward on BACKWARD_BF16_CASES at
-    BACKWARD_BF16_LIMIT and BACKWARD_BF16_RMS_LIMIT, the bf16 LSE entry's
-    o bit-equal to the plain entry point's and its LSE the rows'
-    log-sum-exp to 1e-4; both timed at three shapes."""
+    BACKWARD_BF16_LIMIT and BACKWARD_BF16_RMS_LIMIT, two calls bit-equal;
+    the bf16 LSE entry's o bit-equal to the plain entry point's and its
+    LSE the rows' log-sum-exp to 1e-4; both timed at three shapes, with
+    the delta launch alone."""
     worst = dict(bwd=0.0, fwd=0.0, rms=0.0, lse=0.0)
     for case in BACKWARD_BF16_CASES:
         B, Hq, Hkv, S, D, causal, window, dtype = case
@@ -3366,6 +3430,11 @@ def backward_bf16_check(gen) -> dict:
                                              window=window),
                       tolerance(dtype), f"K1 bf16 forward {case}")
         checks = [bf16_backward_check(g, w) for g, w in zip(got, want)]
+        again = k1_lib.backward(q, k, v, o32, lse, do, causal=causal,
+                                window=window)
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"K1 bf16 backward {case}: two calls gave "
+                                 f"different bits")
         log(f"  K1 bf16 backward {case}: max|err|/max|ref|, rms err / rms "
             f"ref: " + ", ".join(
                 f"{n} {r:.3e}, {rr:.3e}" if float(w.abs().max()) else
@@ -3398,6 +3467,8 @@ def backward_bf16_check(gen) -> dict:
         bwd_ms = time_ms(lambda: k1_lib.backward(q, k, v, o32, lse, do,
                                                  causal=causal,
                                                  window=window))
+        # Launch 1 (delta) alone.
+        delta_ms = time_ms(bf16_delta_launch(o32, do, Hkv))
         plain_bwd_ms = time_ms(lambda: flash_attention_bwd_ref(
             q, k, v, do, causal=causal, window=window), reps=10)
         # The yardstick: autograd's backward through sdpa's bf16 forward.
@@ -3433,10 +3504,11 @@ def backward_bf16_check(gen) -> dict:
                 f"{executed / 1e9:.3f} GFLOP of bf16 products over whole "
                 f"tiles, {executed / ms / 1e9:.1f} TFLOP/s "
                 f"({needed / ms / 1e9:.1f} of the needed)")
-        log(f"  K1 bf16 backward {case}: kernel_ms {bwd_ms:.4f} (3 launches:"
-            f" delta, the dK/dV and dQ tiles, the sum of the GQA shares)  "
-            f"plain_ms {plain_bwd_ms:.4f} (autograd through the plain "
-            f"attention)  library_ms {library_bwd_ms:.4f} (autograd's "
+        log(f"  K1 bf16 backward {case}: kernel_ms {bwd_ms:.4f} (delta, "
+            f"the dK/dV and dQ tiles" + (", the GQA shares' sum"
+                                         if Hq > Hkv else "")
+            + f"; the delta launch alone {delta_ms:.4f})  plain_ms {plain_bwd_ms:.4f} (autograd "
+            f"through the plain attention)  library_ms {library_bwd_ms:.4f} (autograd's "
             f"backward of bf16 scaled_dot_product_attention; kernel / "
             f"library {bwd_ms / library_bwd_ms:.2f})  {lines['bwd']}")
         log(f"  K1 bf16 forward with LSE {case}: kernel_ms {fwd_ms:.4f} (the "
@@ -3951,26 +4023,36 @@ def main() -> None:
                                  f"dynamic shared memory"))
         bwd_lib = build.load("flash_attention_bwd_bf16")
         smem = bwd_lib.odin_flash_attention_bwd_bf16_smem_bytes
-        smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+        threads = bwd_lib.odin_flash_attention_bwd_bf16_threads
+        for fn in (smem, threads):
+            fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+        spilled = []
         for name, line in ptxas_lines(logs["flash_attention_bwd_bf16"]
                                       or ""):
             kernel = re.search(r"bwd_(?:dkv_sum|tiles|delta)", name).group()
             width = re.search(r"ILi(\d+)E", name)
+            tiles = kernel == "bwd_tiles"
             log(f"  K1 bf16 backward {kernel}"
                 + ("" if width is None else
                    f", head dims padded to {width.group(1)}")
-                + f": {line}" + ("" if width is None else
-                                 f", {smem(int(width.group(1)))} B "
-                                 f"dynamic shared memory"))
-        counts = hmma_counts("flash_attention_bwd_bf16",
-                             "HMMA.16816.F32.BF16")
+                + f": {line}" + (
+                    f", {threads(int(width.group(1)))} threads, "
+                    f"{smem(int(width.group(1)))} B dynamic shared memory"
+                    if tiles else ""))
+            if tiles and "0 B spill stores, 0 B spill loads" not in line:
+                spilled.append((name, line))
+        # The tile kernels' products are wgmma (HGMMA in SASS), and ptxas
+        # keeps every register in place.
+        counts = hmma_counts("flash_attention_bwd_bf16", "HGMMA")
         for fn, n in counts.items():
             log(f"  flash_attention_bwd_bf16.cu {kernel_label(fn)}: {n} "
-                f"HMMA.16816.F32.BF16")
+                f"HGMMA")
         if min(n for fn, n in counts.items() if "bwd_tiles" in fn) == 0:
             raise AssertionError(f"flash_attention_bwd_bf16: a tile kernel "
-                                 f"has no bf16 tensor-core instruction: "
-                                 f"{counts}")
+                                 f"has no wgmma (HGMMA): {counts}")
+        if spilled:
+            raise AssertionError(f"flash_attention_bwd_bf16: ptxas spilled "
+                                 f"in a tile kernel: {spilled}")
         # The fp32 kernels' products on the tensor cores: TF32 mma.sync.
         for name in ("flash_attention", "flash_attention_bwd"):
             counts = hmma_counts(name, "HMMA.1688.F32.TF32")

@@ -231,11 +231,12 @@ def backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of the attention from its saved q, k, v, fp32 output
     ``o`` (the third item of :func:`forward_for_backward`) and
     ``lse`` and the output's gradient ``do``: one call of
-    ``csrc/flash_attention_bwd.cu`` for fp32 q/k/v/do or
-    ``csrc/flash_attention_bwd_bf16.cu`` for bf16 (three launches, four
-    under GQA; counted once in ``flash_attention.backward_launches``, and
-    in ``bf16_backward_launches`` for bf16).  Each gradient has its
-    input's dtype and strides."""
+    ``csrc/flash_attention_bwd.cu`` for fp32 q/k/v/do (three launches,
+    four under GQA) or ``csrc/flash_attention_bwd_bf16.cu`` for bf16 (two
+    launches, three under GQA), counted once in
+    ``flash_attention.backward_launches``, and in
+    ``bf16_backward_launches`` for bf16.  Each gradient has its input's
+    dtype and strides."""
     _check_shapes(q, k, v, window)
     ts = (q, k, v, o, do)
     if any(t.device.type != "cuda" or t.device != q.device for t in ts):

@@ -1024,14 +1024,26 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
-def _bf16_product(a: torch.Tensor, b: torch.Tensor, split: bool,
+def _fp16(a: torch.Tensor) -> torch.Tensor:
+    """``a`` rounded to fp16 after a power-of-two scale per row that puts the
+    row's largest |value| in [2^14, 2^15), and scaled back (exactly)."""
+    top = a.abs().amax(-1, keepdim=True)
+    scale = torch.exp2(14 - torch.where(top > 0, torch.floor(torch.log2(top)),
+                                        torch.zeros_like(top)))
+    return (a * scale).to(torch.float16).float() / scale
+
+
+def _bf16_product(a: torch.Tensor, b: torch.Tensor, rounding: str,
                   acc=None) -> torch.Tensor:
     """``acc + a @ b`` as the bf16 kernel takes it: bf16 operands (b is
     exact in bf16), k-slices of 16 in order, each added into an fp32
-    accumulator; with ``split`` the fp32 ``a`` runs as bf16 hi and lo, lo
-    first."""
+    accumulator.  The fp32 ``a`` runs as bf16 hi and lo, lo first
+    (``rounding`` "split"), as bf16 alone ("bf16"), or as one fp16 product
+    with a power-of-two scale per row ("fp16"; b's bf16 values convert to
+    fp16 exactly under such scales, so b stays as it is)."""
     hi = _bf16(a)
-    terms = [_bf16(a - hi), hi] if split else [hi]
+    terms = {"split": lambda: [_bf16(a - hi), hi], "bf16": lambda: [hi],
+             "fp16": lambda: [_fp16(a)]}[rounding]()
     out = torch.zeros(a.shape[:-1] + b.shape[-1:]) if acc is None else acc
     for k0 in range(0, a.shape[-1], 16):
         for t in terms:
@@ -1039,14 +1051,15 @@ def _bf16_product(a: torch.Tensor, b: torch.Tensor, split: bool,
     return out
 
 
-def _bf16_route_backward(q, k, v, do, causal, window, split_p: bool,
-                         split_ds: bool, fp32_o: bool) -> tuple:
+def _bf16_route_backward(q, k, v, do, causal, window, p_rounding: str,
+                         ds_rounding: str, fp32_o: bool) -> tuple:
     """The bf16 backward kernel's arithmetic on the CPU: S and dP from the
     bf16 operands in fp32, P rebuilt from the forward's row log-sum-exp,
     delta = rowsum(dO o O) from the fp32 O (``fp32_o``) or the bf16 one, P
-    (in dV) and dS (in dK and dQ) split into bf16 hi and lo or rounded to
-    bf16 alone, dK and dV summed over a GQA group in head order in fp32.
-    Returns bf16 (dq, dk, dv)."""
+    (in dV) and dS (in dK and dQ) as the products of ``_bf16_product``'s
+    ``rounding``, each 16-row k slice of a 64-row tile in order, dK and dV
+    summed over a GQA group in head order in fp32 (each query head's share
+    rounded to fp32, then added).  Returns bf16 (dq, dk, dv)."""
     B, Hq, S, D = q.shape
     Hkv = k.shape[1]
     group = Hq // Hkv
@@ -1055,16 +1068,16 @@ def _bf16_route_backward(q, k, v, do, causal, window, split_p: bool,
     kf = k.float().repeat_interleave(group, 1)
     vf = v.float().repeat_interleave(group, 1)
     keep = _mask(S, causal, window)
-    s = _bf16_product(qf, kf.transpose(-1, -2), False) * scale
+    s = _bf16_product(qf, kf.transpose(-1, -2), "bf16") * scale
     s = torch.where(keep, s, torch.tensor(-1e30))
     lse = torch.logsumexp(s, -1, keepdim=True)
     p = torch.where(keep, torch.exp(s - lse), torch.zeros(()))
     o = p @ vf
     delta = (dof * (o if fp32_o else _bf16(o))).sum(-1, keepdim=True)
-    ds = p * (_bf16_product(dof, vf.transpose(-1, -2), False) - delta)
-    dq = _bf16_product(ds, kf, split_ds) * scale
-    dk = _bf16_product(ds.transpose(-1, -2), qf, split_ds) * scale
-    dv = _bf16_product(p.transpose(-1, -2), dof, split_p)
+    ds = p * (_bf16_product(dof, vf.transpose(-1, -2), "bf16") - delta)
+    dq = _bf16_product(ds, kf, ds_rounding) * scale
+    dk = _bf16_product(ds.transpose(-1, -2), qf, ds_rounding) * scale
+    dv = _bf16_product(p.transpose(-1, -2), dof, p_rounding)
     dk = dk.reshape(B, Hkv, group, S, D)
     dv = dv.reshape(B, Hkv, group, S, D)
     dk_sum, dv_sum = dk[:, :, 0], dv[:, :, 0]
@@ -1080,12 +1093,16 @@ def _bf16_design_case(case) -> tuple:
     return inputs, _jnp_grad(jq, jk, jv, jdo, *case[5:7])
 
 
-# (split_p, split_ds, fp32_o): the kernel's design first, then each of the
-# roundings it rejects.
-BF16_BWD_DESIGNS = {"split_fp32_o": (True, True, True),
-                    "bf16_o": (True, True, False),
-                    "bf16_p": (False, True, True),
-                    "bf16_ds": (True, False, True)}
+# (P's rounding in dV, dS's in dK and dQ, delta from the fp32 O): the
+# kernel's design first, then each of the roundings it rejects: delta from
+# the bf16 O, P or dS in bf16 alone, or P or dS as one fp16 product (with a
+# power-of-two scale per row) in place of the hi/lo pair.
+BF16_BWD_DESIGNS = {"split_fp32_o": ("split", "split", True),
+                    "bf16_o": ("split", "split", False),
+                    "bf16_p": ("bf16", "split", True),
+                    "bf16_ds": ("split", "bf16", True),
+                    "fp16_p": ("fp16", "split", True),
+                    "fp16_ds": ("split", "fp16", True)}
 
 
 @pytest.mark.parametrize("design", sorted(BF16_BWD_DESIGNS))
@@ -1096,7 +1113,8 @@ def test_bf16_backward_rounding_meets_limits_only_as_designed(case, design):
     the JAX model's attention: with P and dS split and delta from the fp32
     O, each within BACKWARD_BF16_LIMIT and BACKWARD_BF16_RMS_LIMIT (and
     MAIN_RMS_LIMIT); with any one of them rounded as the bf16 forward's
-    output is, some gradient outside the rms limit."""
+    output is, or P or dS taken as one fp16 product, some gradient outside
+    the rms limit."""
     (q, k, v, do), want = _bf16_design_case(case)
     got = _bf16_route_backward(q, k, v, do, *case[5:7],
                                *BF16_BWD_DESIGNS[design])

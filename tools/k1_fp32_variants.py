@@ -32,21 +32,16 @@ Without a CUDA card it exits nonzero.
 from __future__ import annotations
 
 import ctypes
-import re
-import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 
-import numpy as np
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
-
-from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels import flash_attention as k1  # noqa: E402
-from repro_torch.kernels.cases import (  # noqa: E402
+# variant_tools puts the repository's src/ on sys.path.
+from variant_tools import (OUT, build_variants, card, compile_variant,
+                           ptxas_summary, sass_summary, time_ms)
+from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as k1
+from repro_torch.kernels.cases import (
     BACKWARD_CASES,
     BACKWARD_LIMIT,
     BACKWARD_LONG_CASE,
@@ -56,13 +51,11 @@ from repro_torch.kernels.cases import (  # noqa: E402
     max_ratio,
     tolerance,
 )
-from repro_torch.kernels.ref import (  # noqa: E402
+from repro_torch.kernels.ref import (
     flash_attention_bwd_ref,
     flash_attention_ref,
 )
 
-OUT = ROOT / "build" / "variants"
-SPIN_CYCLES = 1_000_000       # about 0.5 ms: the host enqueue is not timed
 LIBRARY = {"fwd": "flash_attention", "bwd": "flash_attention_bwd"}
 
 MMA_RATE_SOURCE = r"""
@@ -96,47 +89,6 @@ extern "C" int odin_mma_rate(float* out, int blocks, int iters) {
 """
 
 
-def compile_variant(name: str, source: Path, flags: list) -> tuple:
-    """(library path, nvcc output); raises if nvcc fails."""
-    out = OUT / f"lib{name}.so"
-    opts = [f if f.startswith("-") else f"-D{f}" for f in flags]
-    r = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, f"-I{build.CSRC}",
-                        *opts, "-o", str(out), str(source)],
-                       capture_output=True, text=True)
-    if r.returncode:
-        raise RuntimeError(f"nvcc {name} failed:\n{r.stdout}{r.stderr}")
-    return out, r.stdout + r.stderr
-
-
-def sass_summary(lib: Path) -> list:
-    """One line per kernel of a library: TF32 HMMA, STL and LDL counts."""
-    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
-                          capture_output=True, text=True, check=True).stdout
-    return [f"{part.split()[0][-60:]}: HMMA.1688.F32.TF32 "
-            f"{part.count('HMMA.1688.F32.TF32')}, STL {part.count('STL')}, "
-            f"LDL {part.count('LDL')}"
-            for part in re.split(r"\n\s*Function : ", sass)[1:]]
-
-
-def time_ms(fn, reps: int = 30) -> float:
-    """Median CUDA-event time of ``fn`` after warm-up."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        torch.cuda._sleep(SPIN_CYCLES)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
 def mma_rate() -> None:
     OUT.mkdir(parents=True, exist_ok=True)
     src = OUT / "mma_rate.cu"
@@ -161,30 +113,18 @@ def main() -> int:
         print(__doc__)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    OUT.mkdir(parents=True, exist_ok=True)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
+    print(card(), flush=True)
     if "--mma-rate" in sys.argv:
         mma_rate()
     if not args:
         return 0
-    specs = {}
-    for arg in args:
-        name, source, *flags = arg.split(":")
-        specs[name] = (ROOT / source, flags)
-    with ThreadPoolExecutor(max_workers=max(len(specs), 1)) as pool:
-        built = {name: pool.submit(compile_variant, name, *spec)
-                 for name, spec in specs.items()}
-        built = {name: f.result() for name, f in built.items()}
     libs = {}
-    for name, (path, log) in built.items():
-        ptxas = re.findall(r"(\d+ bytes spill stores, \d+ bytes spill loads"
-                           r"|Used \d+ registers)", log)
+    for name, (path, log) in build_variants(args).items():
         lib = ctypes.CDLL(str(path))
         kind = "fwd" if hasattr(lib, "odin_flash_attention_fwd_lse") else "bwd"
-        print(f"{name} ({kind}): ptxas {ptxas}", flush=True)
-        for line in sass_summary(path):
+        print(f"{name} ({kind}): ptxas", flush=True)
+        for line in ptxas_summary(log) + sass_summary(
+                path, ("HMMA.1688.F32.TF32", "STL", "LDL")):
             print(f"  {line}", flush=True)
         libs[name] = (kind, lib)
 

@@ -24,20 +24,15 @@ Without a CUDA card it exits nonzero.
 from __future__ import annotations
 
 import ctypes
-import re
-import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 
-import numpy as np
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
-
-from repro_torch.kernels import build, ops  # noqa: E402
-from repro_torch.kernels.cases import (  # noqa: E402
+# variant_tools puts the repository's src/ on sys.path.
+from variant_tools import build_variants, card, ptxas_summary, sass_summary
+from variant_tools import time_ms
+from repro_torch.kernels import build, ops
+from repro_torch.kernels.cases import (
     FLASH_CASES,
     MAIN_CASES,
     MAIN_RMS_LIMIT,
@@ -46,59 +41,7 @@ from repro_torch.kernels.cases import (  # noqa: E402
     TENSOR_CORE_CASES,
     tolerance,
 )
-from repro_torch.kernels.ref import flash_attention_ref  # noqa: E402
-
-OUT = ROOT / "build" / "variants"
-SPIN_CYCLES = 1_000_000       # about 0.5 ms: the host enqueue is not timed
-
-
-def compile_variant(name: str, source: Path, flags: list) -> tuple:
-    """(library path, nvcc output); raises if nvcc fails."""
-    out = OUT / f"lib{name}.so"
-    opts = [f if f.startswith("-") else f"-D{f}" for f in flags]
-    r = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, *opts, "-o",
-                        str(out), str(source)],
-                       capture_output=True, text=True)
-    if r.returncode:
-        raise RuntimeError(f"nvcc {name} failed:\n{r.stdout}{r.stderr}")
-    return out, r.stdout + r.stderr
-
-
-def sass_summary(lib: Path) -> list:
-    """One line per kernel of a library: highest register, STL, LDL,
-    HGMMA and WARPGROUP.DEPBAR counts."""
-    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
-                          capture_output=True, text=True, check=True).stdout
-    lines = []
-    for part in re.split(r"\n\s*Function : ", sass)[1:]:
-        regs = [int(x) for x in re.findall(r"\bR(\d+)\b", part)]
-        lines.append(f"{part.split()[0]}: highest register R{max(regs)}, "
-                     f"STL {part.count('STL')}, LDL {part.count('LDL')}, "
-                     f"HGMMA {part.count('HGMMA')}, WARPGROUP.DEPBAR "
-                     f"{part.count('WARPGROUP.DEPBAR')}")
-    return lines
-
-
-def time_ms(fn, reps: int = 30, flush=None) -> float:
-    """Median CUDA-event time of ``fn`` after warm-up; ``flush()`` runs
-    before each timed call, outside the timing."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        if flush is not None:
-            flush()
-        torch.cuda._sleep(SPIN_CYCLES)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+from repro_torch.kernels.ref import flash_attention_ref
 
 
 def main() -> int:
@@ -106,24 +49,13 @@ def main() -> int:
         print(__doc__)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    OUT.mkdir(parents=True, exist_ok=True)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
-    specs = {}
-    for arg in sys.argv[1:]:
-        name, source, *flags = arg.split(":")
-        specs[name] = (ROOT / source, flags)
-    with ThreadPoolExecutor(max_workers=len(specs)) as pool:
-        built = {name: pool.submit(compile_variant, name, *spec)
-                 for name, spec in specs.items()}
-        built = {name: f.result() for name, f in built.items()}
+    print(card(), flush=True)
     libs = {}
-    for name, (path, log) in built.items():
-        ptxas = re.findall(r"(\d+ bytes spill stores, \d+ bytes spill loads"
-                           r"|Used \d+ registers)", log)
-        print(f"{name}: ptxas {ptxas}", flush=True)
-        for line in sass_summary(path):
+    for name, (path, log) in build_variants(sys.argv[1:]).items():
+        print(f"{name}: ptxas", flush=True)
+        for line in ptxas_summary(log) + sass_summary(
+                path, ("STL", "LDL", "HGMMA", "WARPGROUP.DEPBAR"),
+                registers=True):
             print(f"  {line}", flush=True)
         libs[name] = ctypes.CDLL(str(path))
 

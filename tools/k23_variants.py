@@ -30,21 +30,17 @@ Without a CUDA card it exits nonzero.
 from __future__ import annotations
 
 import ctypes
-import re
-import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 
 import numpy as np
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
-
-from repro_torch.kernels import build, ops  # noqa: E402
-from repro_torch.kernels import decode_attention as k2  # noqa: E402
-from repro_torch.kernels.cases import (  # noqa: E402
+# variant_tools puts the repository's src/ on sys.path.
+from variant_tools import (build_variants, card, kernel_times,
+                           ptxas_summary, time_ms)
+from repro_torch.kernels import build, ops
+from repro_torch.kernels import decode_attention as k2
+from repro_torch.kernels.cases import (
     DECODE_CASES,
     DECODE_CORNER_CASES,
     DECODE_MAIN_CASE,
@@ -62,33 +58,11 @@ from repro_torch.kernels.cases import (  # noqa: E402
     ssd_limit,
     tolerance,
 )
-from repro_torch.kernels.ref import (  # noqa: E402
+from repro_torch.kernels.ref import (
     decode_attention_ref,
     ssd_scan_ref,
 )
 
-sys.path.insert(0, str(ROOT / "tools"))
-from k1_variants import OUT, compile_variant, time_ms  # noqa: E402
-
-
-def kernel_times(fn, reps: int = 20) -> str:
-    """Device time per call of each CUDA kernel that ``fn`` launches, from
-    ``torch.profiler`` (averaged over ``reps`` calls)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total", None)
-        if t is None:
-            t = getattr(ev, "cuda_time_total", 0)
-        if t > 0 and ev.count >= reps:
-            rows.append(f"{ev.key[:60]} {t / reps / 1e3:.4f} ms")
-    return "; ".join(rows) or "no device time recorded"
 
 
 def rms(t) -> float:
@@ -238,23 +212,12 @@ def main() -> int:
         return 2
     kernel = sys.argv[1]
     torch.backends.cuda.matmul.allow_tf32 = False
-    OUT.mkdir(parents=True, exist_ok=True)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
-    specs = {}
-    for arg in sys.argv[2:]:
-        name, source, *flags = arg.split(":")
-        specs[name] = (ROOT / source, flags)
-    with ThreadPoolExecutor(max_workers=len(specs)) as pool:
-        built = {name: pool.submit(compile_variant, name, *spec)
-                 for name, spec in specs.items()}
-        built = {name: f.result() for name, f in built.items()}
+    print(card(), flush=True)
     libs = {}
-    for name, (path, log) in built.items():
-        ptxas = re.findall(r"(\d+ bytes spill stores, \d+ bytes spill loads"
-                           r"|Used \d+ registers)", log)
-        print(f"{name}: ptxas {ptxas}", flush=True)
+    for name, (path, log) in build_variants(sys.argv[2:]).items():
+        print(f"{name}: ptxas", flush=True)
+        for line in ptxas_summary(log):
+            print(f"  {line}", flush=True)
         libs[name] = ctypes.CDLL(str(path))
 
     def use(name: str) -> None:
