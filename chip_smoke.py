@@ -11,14 +11,16 @@ time.
    There must be a CUDA device.
 2. build: the port's kernels K1 (its bf16 tensor-core kernel with its
    plain and LSE entry points, its bf16 backward, its fp32 kernel and its
-   fp32 backward, both 3xTF32 on the tensor cores), K2 and K3 from their
-   sources in this checkout, one ``nvcc`` per source, all started
-   together; ``ptxas``' registers, spills and the dynamic shared memory of
-   K1's kernels (both instantiations of the bf16 forward), of its
-   backwards' launches and of K3's three launches (with their grids at
-   mamba2-370m's shape); the TF32 tensor-core instructions
-   (``HMMA.1688.F32.TF32`` in ``cuobjdump -sass``) of each fp32 kernel and
-   the wgmma ones (``HGMMA``) of the bf16 backward's tile kernels, which
+   fp32 backward, both 3xTF32 on the tensor cores), K2 and K3 (its forward
+   and its backward) from their sources in this checkout, one ``nvcc`` per
+   source, all started together; ``ptxas``' registers, spills and the
+   dynamic shared memory of K1's kernels (both instantiations of the bf16
+   forward), of its backwards' launches, of K3's three launches (with
+   their grids at mamba2-370m's shape) and of K3's five backward launches
+   (with their grids at mamba2-370m's training shape); the TF32
+   tensor-core instructions (``HMMA.1688.F32.TF32`` in ``cuobjdump
+   -sass``) of each fp32 kernel and the wgmma ones (``HGMMA``) of the bf16
+   backward's tile kernels, which
    must not be 0, with those kernels' threads, registers and dynamic
    shared memory; ptxas must report no spill in them.
 3. K1 (flash attention) against its plain version on the card, at the
@@ -236,7 +238,17 @@ time.
       1024, 64) and (1, 32, 8, 1024, 128) beside the plain version, bf16
       sdpa and autograd's backward of it, the bound (the needed products
       at the bf16 peak, or the bytes) and the executed TFLOP/s, with the
-      delta launch alone;
+      delta launch alone; then K3's backward (``csrc/ssd_scan_bwd.cu``)
+      on SSD_BACKWARD_CASES (every forward case and the main, training
+      and smoke shapes, in both dtypes), each with the JAX test's dt and
+      a slowly decaying one and random dy and dstate, against the plain
+      backward (autograd through the token recurrence): each of dx, ddt,
+      dA, dB and dC within SSD_BACKWARD_LIMIT of max |ref| (fp32) or
+      SSD_BACKWARD_BF16_LIMIT and SSD_BACKWARD_BF16_RMS_LIMIT (bf16), two
+      calls bit-equal; timed at SSD_BACKWARD_TIMED (the training shape,
+      mamba2-370m's heads over 1024 tokens, jamba-1.5-large's) in both
+      dtypes beside the plain backward and the bound, with each launch's
+      device time (``torch.profiler``);
    b. full-width qwen2-0.5b (24 blocks, 0.63 B parameters) in fp32 with
       remat per block, batches of ``SyntheticLM(vocab, 256, 8, seed=0)``:
       step 0's loss and every gradient leaf with K1 against the same with
@@ -252,8 +264,13 @@ time.
       hubert-xlarge (bidirectional, embeddings) and llava-next-34b
       (embeddings) at smoke width, K1 against the plain attention at b's
       limits, then one bf16 step of deepseek-moe-16b and mixtral-8x22b
-      (K1's bf16 kernels) at e's limits; mamba2-370m must raise
-      ``NotImplementedError`` (K3 has no backward yet);
+      (K1's bf16 kernels) at e's limits; mamba2-370m and jamba-1.5-large
+      (K3's forward and backward; K1 in jamba's attention sublayer) one
+      fp32 step at b's limits and one bf16 step at e's, where in bf16 a
+      leaf may also differ by as much as the plain version's own bf16
+      gradient differs from its fp32 one (jamba's reach 0.26), K3
+      launching its forward twice and its backward once per Mamba2
+      sublayer and step;
    d. ``python -m repro_torch.launch.train --arch qwen2-0.5b --full
       --steps 20``;
    e. full-width qwen2-0.5b in bf16, ``train(..., dtype=torch.bfloat16)``
@@ -264,7 +281,16 @@ time.
       launches (24 x 30 of them LSE launches) and 24 x 30 bf16 backward
       launches and no fp32 one; the median step time, tokens/s, TFLOP/s,
       the busy share, K1's shares, the five kernels with the most device
-      time and the peak memory, beside b's fp32 numbers.
+      time and the peak memory, beside b's fp32 numbers;
+   f. full-width mamba2-370m (48 blocks, 0.42 B parameters) in fp32 with
+      remat per block at b's data, optimizer and steps: step 0's loss and
+      every gradient leaf with K3 against ``impl="ref"`` at b's limits; 30
+      steps (every loss finite, the mean of the last 5 below step 0's), K3
+      counting exactly 2 x 48 x 30 forward and 48 x 30 backward launches;
+      the median step time, tokens/s, TFLOP/s from ``launch/analytic.py``,
+      the busy share, K3's forward and backward shares (and each backward
+      launch's), the five kernels with the most device time and the peak
+      memory.
 14. the total time, the card line again, one ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -325,6 +351,9 @@ from repro_torch.kernels.cases import (  # noqa: E402
     MAIN_RMS_LIMIT,
     MAIN_TOLERANCE,
     RAGGED_CASES,
+    SSD_BACKWARD_CASES,
+    SSD_BACKWARD_TIMED,
+    SSD_BACKWARD_TRAIN_CASE,
     SSD_BATCHED_MAIN_CASE,
     SSD_CASES,
     SSD_CORNER_CASES,
@@ -337,6 +366,7 @@ from repro_torch.kernels.cases import (  # noqa: E402
     TENSOR_CORE_CASES,
     bf16_backward_check,
     max_ratio,
+    ssd_backward_check,
     ssd_limit,
     tolerance,
 )
@@ -346,6 +376,7 @@ from repro_torch.kernels.ref import (  # noqa: E402
     decode_attention_ref,
     flash_attention_bwd_ref,
     flash_attention_ref,
+    ssd_scan_bwd_ref,
     ssd_scan_ref,
 )
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
@@ -415,7 +446,8 @@ PEAK_FP32_FLOPS = 67e12       # H100 SXM, fp32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12      # H100 SXM, dense TF32 tensor cores
 PEAK_HBM_BYTES = 3.35e12      # H100 SXM, HBM3
 KERNELS = ("flash_attention_bf16", "flash_attention", "flash_attention_bwd",
-           "flash_attention_bwd_bf16", "decode_attention", "ssd_scan")
+           "flash_attention_bwd_bf16", "decode_attention", "ssd_scan",
+           "ssd_scan_bwd")
 # A clean query's block time with the first designs of K1 (bf16 on the fp32
 # CUDA cores) and K3 (one block per head), chip_smoke.py on an NVIDIA H100
 # 80GB HBM3 at 700 W, printed beside this run's.
@@ -561,6 +593,15 @@ FAMILY_BF16_TRAIN_ARCHS = ("deepseek-moe-16b", "mixtral-8x22b")
 FAMILY_TRAIN_ARCHS = ("deepseek-moe-16b", "mixtral-8x22b", "hubert-xlarge",
                       "llava-next-34b")
 FAMILY_TRAIN_SEQ, TRAIN_CLI_STEPS = 128, 20
+# 13c: the Mamba2 families take one fp32 and one bf16 step at their smoke
+# width (K3's forward and backward kernels); 13f trains full-width
+# MAMBA_TRAIN_ARCH in fp32 at TRAIN_ARCH's batches, optimizer and steps.
+MAMBA_TRAIN_ARCHS = ("mamba2-370m", "jamba-1.5-large-398b")
+MAMBA_TRAIN_ARCH = "mamba2-370m"
+# K3's backward launches and the forward ones, by kernel name.
+K3_FWD_KERNELS = ("ssd_chunk_states", "ssd_state_pass", "ssd_chunk_outputs")
+K3_BWD_KERNELS = ("ssd_bwd_chunk_dstates", "ssd_bwd_state_pass",
+                  "ssd_bwd_tiles", "ssd_bwd_chunk_finish", "ssd_bwd_sums")
 
 
 def log(msg: str) -> None:
@@ -1815,6 +1856,12 @@ def free_memory() -> None:
     """Release what the last phase's models left behind."""
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def widened(tree: dict) -> dict:
+    """A copy of a parameter tree with every leaf in fp32."""
+    return {k: widened(v) if isinstance(v, dict) else v.float()
+            for k, v in tree.items()}
 
 
 def tree_bytes(tree: dict) -> int:
@@ -3519,11 +3566,156 @@ def backward_bf16_check(gen) -> dict:
     return dict(worst=worst, timed=timed)
 
 
+def ssd_bwd_work(b, S, H, P, N, chunk, elem_bytes, dstate: bool) -> tuple:
+    """K3's backward: (operations it needs, bytes).  Bytes: x, dt, A, B, C
+    and dy read once, dx, ddt, dA, dB and dC written once, in the inputs'
+    dtype (the forward's scratch that the backward reads, cs and the chunk
+    states, is this design's choice and is not counted).  Operations: the
+    five products over each chunk's (i, j <= i) pairs, C.B^T once per batch
+    row (the heads share it) and dy.u, du, dB and dC per head; and the
+    state's products where this run's data needs them, per position and
+    head: G B_j and G^T u_j where a gradient leaves the chunk (every chunk
+    but the last, and the last with a ``dstate``), h-^T dy_i where a state
+    enters it and the chunk's own term of the gradient entering it (every
+    chunk but the first)."""
+    nc = -(-S // chunk)
+    flops = 0
+    for c in range(nc):
+        cl = min(chunk, S - c * chunk)
+        pairs = cl * (cl + 1) // 2
+        flops += b * 2 * pairs * N + b * H * 2 * pairs * (2 * P + 2 * N)
+        terms = 2 * (c < nc - 1 or dstate) + 2 * (c > 0)
+        flops += b * H * cl * 2 * P * N * terms
+    nbytes = (3 * b * S * H * P + 2 * b * S * H + 4 * b * S * N + 2 * H) \
+        * elem_bytes
+    return flops, nbytes
+
+
+def kernel_times(prof) -> dict:
+    """Each kernel of a ``torch.profiler`` run (CPU and CUDA activities):
+    name -> (device ms, launches recorded).  Only the device's own events:
+    a CPU op's device time repeats its kernels'."""
+    from torch.autograd import DeviceType
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        t = (getattr(ev, "device_time_total", None)
+             or getattr(ev, "cuda_time_total", 0)) / 1e3
+        out[ev.key] = (t, ev.count)
+    return out
+
+
+def by_name(times: dict, names) -> dict:
+    """``kernel_times``' entries summed by which of ``names`` each kernel's
+    name holds: name -> (device ms, launches)."""
+    out = dict.fromkeys(names, (0.0, 0))
+    for key, (t, n) in times.items():
+        for name in names:
+            if name in key:
+                out[name] = (out[name][0] + t, out[name][1] + n)
+    return out
+
+
+def ssd_backward_phase(gen) -> dict:
+    """13a, K3: the backward kernel (csrc/ssd_scan_bwd.cu) against the
+    plain backward (autograd through the token recurrence) on
+    SSD_BACKWARD_CASES with the JAX test's dt and a slowly decaying one,
+    random dy and dstate: each gradient within cases.py's limits, two calls
+    with the same bits; timed at SSD_BACKWARD_TIMED in both dtypes beside
+    the plain backward and the bound, with each launch's device time."""
+    worst = {"float32": [0.0, 0.0, 0.0], "bfloat16": [0.0, 0.0, 0.0]}
+    for case in SSD_BACKWARD_CASES:
+        b, S, H, P, N, chunk, dtype = case
+        for slow in (False, True):
+            ins = ssd_inputs(gen, b, S, H, P, N, dtype, slow)
+            dy = randn(gen, (b, S, H, P), dtype)
+            dstate = randn(gen, (b, H, P, N), "float32")
+            _, _, cs, states = k3_lib.forward_for_backward(*ins, chunk=chunk)
+            got = k3_lib.backward(*ins, cs, states, dy, dstate, chunk=chunk)
+            again = k3_lib.backward(*ins, cs, states, dy, dstate,
+                                    chunk=chunk)
+            want = ssd_scan_bwd_ref(*ins, dy, dstate)
+            torch.cuda.synchronize()
+            readings = [ssd_backward_check(g, w, dtype)
+                        for g, w in zip(got, want)]
+            same = all(torch.equal(g, g2) for g, g2 in zip(got, again))
+            finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+            log(f"  K3 backward {case} {'slow' if slow else 'JAX'} dt: "
+                f"max|err|/max|ref| "
+                + " ".join(f"{n} {r[0]:.2e}" for n, r in
+                           zip(("dx", "ddt", "dA", "dB", "dC"), readings))
+                + "; rms err/rms "
+                + " ".join(f"{r[1]:.2e}" for r in readings)
+                + f"; two calls bit-equal: {same}")
+            if not (all(r[2] for r in readings) and same and finite):
+                raise AssertionError(f"K3 backward {case}: {readings}, "
+                                     f"bit-equal {same}, finite {finite}")
+            w = worst[dtype]
+            w[0] = max([w[0]] + [r[0] for r in readings])
+            w[1] = max([w[1]] + [r[1] for r in readings])
+            w[2] = max([w[2]] + [float((g.float() - r.float()).abs().max())
+                                 for g, r in zip(got, want)])
+    log(f"  K3 backward, worst over the cases: fp32 max_ratio "
+        f"{worst['float32'][0]:.2e} (limit 1e-4), bf16 max_ratio "
+        f"{worst['bfloat16'][0]:.2e} and rms {worst['bfloat16'][1]:.2e}")
+
+    from torch.profiler import ProfilerActivity, profile
+    timed = {}
+    for shape in SSD_BACKWARD_TIMED:
+        b, S, H, P, N, chunk = shape
+        for dtype in ("float32", "bfloat16"):
+            ins = ssd_inputs(gen, b, S, H, P, N, dtype)
+            dy = randn(gen, (b, S, H, P), dtype)
+            _, _, cs, states = k3_lib.forward_for_backward(*ins, chunk=chunk)
+
+            def run():
+                return k3_lib.backward(*ins, cs, states, dy, None,
+                                       chunk=chunk)
+
+            ms = time_ms(run)
+            plain_ms = time_ms(lambda: ssd_scan_bwd_ref(*ins, dy), reps=3,
+                               warmup=1)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    run()
+                torch.cuda.synchronize()
+            # The mean over the launches the profiler recorded.
+            launch_ms = {k: t / n for k, (t, n) in
+                         by_name(kernel_times(prof), K3_BWD_KERNELS).items()
+                         if n}
+            elem = 4 if dtype == "float32" else 2
+            flops, nbytes = ssd_bwd_work(b, S, H, P, N, chunk, elem, False)
+            if dtype == "float32":
+                (bound_ms, bound_by), cuda, tf32 = fp32_bounds(flops, nbytes)
+                peak = (f"the lesser of the fp32 CUDA-core bound "
+                        f"{cuda[0]:.4f} ms and the 3xTF32 bound "
+                        f"{tf32[0]:.4f} ms")
+            else:
+                bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+                peak = f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s of bf16"
+            timed[(shape, dtype)] = dict(ms=ms, plain_ms=plain_ms,
+                                         bound_ms=bound_ms, bound_by=bound_by,
+                                         library_ms=None, launch_ms=launch_ms)
+            log(f"  K3 backward {shape} {dtype}: kernel_ms {ms:.4f}  "
+                f"plain_ms {plain_ms:.4f} (autograd through the token "
+                f"recurrence)  library_ms none (no PyTorch call computes it)"
+                f"  bound_ms {bound_ms:.5f} ({bound_by}; {peak}; "
+                f"{flops / 1e9:.3f} GFLOP of products, {nbytes / 1e6:.2f} MB;"
+                f" {flops / ms / 1e9:.2f} TFLOP/s achieved); device ms per "
+                f"launch: " + ", ".join(f"{k} {v:.4f}"
+                                        for k, v in launch_ms.items()))
+    return dict(worst=worst, timed=timed)
+
+
 def phase_backward_check() -> dict:
     """13a: K1's backward kernel against the plain backward on
     BACKWARD_CASES, the LSE entry point against the plain entry point; both
     timed at the training shape and at S 1024; then the same in bf16
-    (:func:`backward_bf16_check`)."""
+    (:func:`backward_bf16_check`); then K3's backward
+    (:func:`ssd_backward_phase`)."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     worst = dict(bwd=0.0, fwd=0.0)
     for case in BACKWARD_CASES:
@@ -3610,38 +3802,58 @@ def phase_backward_check() -> dict:
             f"plain_ms {plain_fwd_ms:.4f}  library_ms {library_fwd_ms:.4f} "
             f"(fp32 scaled_dot_product_attention; kernel / library "
             f"{fwd_ms / library_fwd_ms:.2f})  {lines['fwd']}")
-    return dict(worst=worst, timed=timed, bf16=backward_bf16_check(gen))
+    return dict(worst=worst, timed=timed, bf16=backward_bf16_check(gen),
+                k3=ssd_backward_phase(gen))
 
 
 def grads_against_ref(model, params, batch, what: str,
                       loss_rtol: float = TRAIN_LOSS_RTOL,
-                      grad_limit: float = TRAIN_GRAD_RMS_LIMIT) -> tuple:
+                      grad_limit: float = TRAIN_GRAD_RMS_LIMIT,
+                      fp32_params=None) -> tuple:
     """Step 0's loss and every gradient leaf with the kernels against the
     same with ``impl="ref"`` on the card: the loss to ``loss_rtol``, each
-    leaf's rms error to ``grad_limit`` of its rms.  Returns (loss, worst
-    leaf ratio)."""
+    leaf's rms error to ``grad_limit`` of its rms.  With ``fp32_params``
+    (bf16 ``params`` widened) a leaf may also differ by as much as the
+    plain version's own bf16 gradient differs from its fp32 one there:
+    two bf16 gradients are not asked to agree more closely than either
+    can agree with the fp32 gradient.  Returns (loss, the worst leaf's
+    ratio over its limit)."""
     (loss, _), grads = loss_and_grads(model, params, batch)
     (loss_ref, _), grads_ref = loss_and_grads(model, params, batch,
                                               impl="ref")
+    floor = {}
+    if fp32_params is not None:
+        _, grads_32 = loss_and_grads(model, fp32_params, batch, impl="ref")
+        floor = {key: rel_rms(w, w32) for (key, w), w32 in zip(
+            flatten(grads_ref).items(), flatten(grads_32).values())}
     torch.cuda.synchronize()
     rel = abs(float(loss) - float(loss_ref)) / abs(float(loss_ref))
-    worst, worst_key = 0.0, None
+    worst, worst_key, worst_limit = 0.0, None, grad_limit
     for (key, g), w in zip(flatten(grads).items(),
                            flatten(grads_ref).values()):
         err, ref = rms(g.float() - w.float()), rms(w)
         ratio = err / ref if ref > 0 else (0.0 if err == 0 else float("inf"))
-        if ratio > worst:
-            worst, worst_key = ratio, key
+        limit = max(grad_limit, floor.get(key, 0.0))
+        if ratio / limit > worst / worst_limit:
+            worst, worst_key, worst_limit = ratio, key, limit
         if not bool(torch.isfinite(g).all()):
             raise AssertionError(f"{what}: non-finite gradient at {key}")
-    log(f"  {what}: loss {float(loss):.6f} with K1, {float(loss_ref):.6f} "
-        f"with the plain attention (rel {rel:.2e}, limit {loss_rtol});"
-        f" worst gradient leaf rms err / rms {worst:.2e} at {worst_key} "
-        f"(limit {grad_limit})")
-    if not (rel <= loss_rtol and worst <= grad_limit):
-        raise AssertionError(f"{what}: K1's gradients disagree with the "
-                             f"plain attention's")
-    return float(loss), worst
+    if floor:
+        above = sorted(((v, k) for k, v in floor.items() if v > grad_limit),
+                       reverse=True)
+        log(f"  {what}: the plain version's own bf16-vs-fp32 rms gap per "
+            f"leaf reads {min(floor.values()):.2e} to "
+            f"{max(floor.values()):.2e}, above {grad_limit} at {len(above)} "
+            f"of {len(floor)} leaves (largest: "
+            + ", ".join(f"{k} {v:.3f}" for v, k in above[:3]) + ")")
+    log(f"  {what}: loss {float(loss):.6f} with the kernels, "
+        f"{float(loss_ref):.6f} with their plain versions (rel {rel:.2e}, "
+        f"limit {loss_rtol}); worst gradient leaf rms err / rms {worst:.2e} "
+        f"at {worst_key} (limit {worst_limit:.3g})")
+    if not (rel <= loss_rtol and worst <= worst_limit):
+        raise AssertionError(f"{what}: the kernels' gradients disagree with "
+                             f"the plain versions'")
+    return float(loss), worst / worst_limit
 
 
 def k1_kernel_ms(prof) -> dict:
@@ -3773,8 +3985,9 @@ def phase_train() -> dict:
 def phase_train_families() -> dict:
     """13c: one train step of each family at its smoke width: K1 against
     the plain attention at 13b's limits, then a step of ``make_train_step``;
-    the MoE families again in bf16 at 13e's limits; mamba2-370m must raise
-    on the card (K3 has no backward yet)."""
+    the MoE families again in bf16 at 13e's limits; the Mamba2 families
+    (K3's forward and backward) in fp32 and bf16 at 13b's and 13e's
+    limits."""
     dev = torch.device("cuda")
     for arch in FAMILY_TRAIN_ARCHS:
         cfg = get_smoke_config(arch)
@@ -3823,18 +4036,137 @@ def phase_train_families() -> dict:
                                  f"{vars(flash_attention)}")
         log(f"  {arch} in bf16: one train step, loss {float(m['loss']):.4f},"
             f" K1 bf16 backward launches {n}")
-    cfg = get_smoke_config("mamba2-370m")
-    params = Model(cfg).init_params(seed=0, device="cuda")
-    batch = to_batch(SyntheticLM(cfg.vocab_size, FAMILY_TRAIN_SEQ, 2)
-                     .batch_at(0), dev)
-    try:
-        loss_and_grads(Model(cfg, remat=True), params, batch)
-    except NotImplementedError as e:
-        log(f"  mamba2-370m raises on the card, as it must: {e}")
-    else:
-        raise AssertionError("mamba2-370m trained on the card without K3's "
-                             "backward")
+    # The Mamba2 families: K3's forward and backward kernels (and K1 in
+    # jamba's attention sublayer), one step in fp32 and one in bf16.
+    for arch in MAMBA_TRAIN_ARCHS:
+        cfg = get_smoke_config(arch)
+        subs = cfg.layer_pattern.count("mamba") * cfg.num_blocks
+        for dtype, limits in (
+                ("float32", (TRAIN_LOSS_RTOL, TRAIN_GRAD_RMS_LIMIT)),
+                ("bfloat16", (TRAIN_BF16_LOSS_RTOL,
+                              TRAIN_BF16_GRAD_RMS_LIMIT))):
+            params = Model(cfg).init_params(seed=0,
+                                            dtype=getattr(torch, dtype),
+                                            device="cuda")
+            batch = to_batch(SyntheticLM(cfg.vocab_size, FAMILY_TRAIN_SEQ, 2)
+                             .batch_at(0), dev)
+            reset_counts(ssd_scan)
+            # In bf16 each leaf is also allowed the plain version's own
+            # bf16-vs-fp32 gap: jamba's leaves read up to 0.26 there (123
+            # of 135 above 13e's limit, on an NVIDIA H100 80GB HBM3 at
+            # 700 W; this phase prints it).
+            grads_against_ref(Model(cfg, remat=True), params, batch,
+                              f"{arch} in {dtype} (smoke width, S "
+                              f"{FAMILY_TRAIN_SEQ}, {subs} Mamba2 "
+                              f"sublayers)", *limits,
+                              fp32_params=None if dtype == "float32"
+                              else widened(params))
+            step = make_train_step(cfg, AdamWConfig(warmup_steps=1))
+            _, _, m = step(params, init_adamw(params), batch)
+            counts = {name: n for name, n in vars(ssd_scan).items()
+                      if name.endswith("launches")}
+            # Two steps with the kernels (the check's and this one), each
+            # running every Mamba2 sublayer's forward twice (remat) and its
+            # backward once.
+            want = dict(launches=4 * subs, backward_launches=2 * subs)
+            if not (np.isfinite(float(m["loss"])) and counts == want):
+                raise AssertionError(f"{arch} {dtype}: train step loss "
+                                     f"{float(m['loss'])}, K3 launches "
+                                     f"{counts}, expected {want}")
+            log(f"  {arch} in {dtype}: one train step, loss "
+                f"{float(m['loss']):.4f}, K3 launches {counts}")
     return {}
+
+
+def phase_train_mamba() -> dict:
+    """13f: full-width mamba2-370m in fp32 with remat: step 0's loss and
+    every gradient leaf with K3 against ``impl="ref"``, TRAIN_STEPS steps
+    of ``train`` with exact K3 launch counts, the step's time and where it
+    goes."""
+    cfg = get_config(MAMBA_TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, remat=True)
+    params = model.init_params(seed=0, dtype=torch.float32, device="cuda")
+    s = cfg.ssm
+    log(f"  {cfg.name}: {cfg.param_count() / 1e9:.3f} B parameters, "
+        f"{cfg.num_blocks} blocks, d_model {cfg.d_model}, heads "
+        f"{s.num_heads(cfg.d_model)}, P {s.head_dim}, N {s.d_state}, chunk "
+        f"{s.chunk_size}, vocab {cfg.vocab_size}, fp32, remat per block; "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens (SyntheticLM, seed 0)")
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    dev = torch.device("cuda")
+    grads_against_ref(model, params, to_batch(data.batch_at(0), dev),
+                      "step 0, full width")
+    check_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    opt = AdamWConfig(**TRAIN_OPT)
+    reset_counts(ssd_scan)
+    out = train(cfg, opt, iter(data), TRAIN_STEPS, device="cuda",
+                params=params, log_every=1, log_fn=lambda *_: None)
+    counts = {name: n for name, n in vars(ssd_scan).items()
+              if name.endswith("launches")}
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    steps_s = np.diff([0.0] + [h["wall_s"] for h in hist])
+    log(f"  {TRAIN_STEPS} steps: losses {[round(x, 4) for x in losses]}")
+    log(f"  K3 launches over the {TRAIN_STEPS} steps: {counts}")
+    n = cfg.num_blocks * TRAIN_STEPS
+    want = dict(launches=2 * n, backward_launches=n)
+    if counts != want:
+        raise AssertionError(f"K3 launches in training: {counts}, expected "
+                             f"{want}")
+    if not (all(np.isfinite(losses))
+            and np.mean(losses[-5:]) < losses[0]):
+        raise AssertionError(f"training did not lower the loss: {losses}")
+
+    # Where a step's time goes: the card's busy share and K3's shares.
+    # CPU and CUDA activities: with CUDA's alone the profiler dropped the
+    # first launches of a window (13a in this PR's first run).
+    from torch.profiler import ProfilerActivity, profile
+    step_fn = make_train_step(cfg, opt)
+    batch = to_batch(data.batch_at(TRAIN_STEPS), dev)
+    p, st = out["params"], out["opt_state"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        p, st, _ = step_fn(p, st, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    times = kernel_times(prof)
+    total = sum(t for t, _ in times.values())
+    gemm = sum(t for key, (t, _) in times.items()
+               if any(k in key.lower() for k in ("gemm", "nvjet")))
+    k3 = by_name(times, K3_FWD_KERNELS + K3_BWD_KERNELS)
+    fwd = sum(k3[k][0] for k in K3_FWD_KERNELS)
+    bwd = sum(k3[k][0] for k in K3_BWD_KERNELS)
+    top = sorted(((t, key) for key, (t, _) in times.items()), reverse=True)
+    busy = total / (1e3 * wall)
+    step_s = float(np.median(steps_s[1:]))
+    shape = InputShape("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    flops = analytic_cost(cfg, shape).totals("train", remat=True)["flops"]
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    log(f"  step time (host clock, synchronised, median of steps 1-"
+        f"{TRAIN_STEPS - 1}): {1e3 * step_s:.2f} ms (step 0 "
+        f"{1e3 * steps_s[0]:.2f} ms); {tokens / step_s:.0f} tokens/s; "
+        f"{flops / 1e12:.3f} TFLOP a step (launch/analytic.py, train, "
+        f"remat) = {flops / step_s / 1e12:.2f} TFLOP/s achieved")
+    log(f"  one profiled step: {1e3 * wall:.2f} ms on the host clock, the "
+        f"card busy {total:.2f} ms ({100 * busy:.1f}%); K3 forward "
+        f"{fwd:.2f} ms ({100 * fwd / total:.1f}% of busy), K3 backward "
+        f"{bwd:.2f} ms ({100 * bwd / total:.1f}%); by launch (ms, launches "
+        f"recorded): " + ", ".join(f"{k} {t:.2f} x{n}"
+                                   for k, (t, n) in k3.items() if n)
+        + f"; matrix products {gemm:.2f} ms ({100 * gemm / total:.1f}%); "
+        f"the five kernels with the most device time: "
+        + "; ".join(f"{name[:60]} {t:.2f} ms" for t, name in top[:5]))
+    log_memory(f"{cfg.name} training")
+    log(f"  peak device memory of step 0's check against the plain scan "
+        f"(autograd through the token recurrence): "
+        f"{check_peak / 2**30:.2f} GiB")
+    return dict(counts=counts, step_s=step_s, losses=losses, busy=busy,
+                peak=torch.cuda.max_memory_allocated())
 
 
 def phase_train_bf16(fp32: dict) -> dict:
@@ -3998,6 +4330,18 @@ def main() -> None:
             log(f"  K3 {launch} (bf16) at {SSD_MAIN_CASE}: grid {grid} = "
                 f"{int(np.prod(grid))} blocks of {threads} threads, {line}, "
                 f"{smem_bytes} B dynamic shared memory")
+        b, S, H, P, N, chunk, _ = SSD_BACKWARD_TRAIN_CASE
+        shapes = k3_lib.backward_launch_shape(b, S, H, P, N, chunk)
+        long_shapes = k3_lib.backward_launch_shape(*SSD_BACKWARD_TIMED[1])
+        for name, line in ptxas_lines(logs["ssd_scan_bwd"] or ""):
+            launch = next(k for k in K3_BWD_KERNELS if k in name)
+            if "bfloat16" in name:
+                continue                 # as the fp32 instantiation
+            grid, threads, smem_bytes = {**long_shapes, **shapes}[launch]
+            log(f"  K3 backward {launch} at {SSD_BACKWARD_TRAIN_CASE[:6]}"
+                + (" (S 1024)" if launch not in shapes else "")
+                + f": grid {grid} = {int(np.prod(grid))} blocks of {threads}"
+                f" threads, {line}, {smem_bytes} B dynamic shared memory")
         for name, line in ptxas_lines(logs["decode_attention"] or ""):
             if "bfloat16" in name:
                 log(f"  K2 decode_fwd (bf16): {line}")
@@ -4126,6 +4470,9 @@ def main() -> None:
     trained_bf16 = phase("phase 13e: full-width qwen2-0.5b trains in bf16",
                          phase_train_bf16, trained)
     free_memory()
+    trained_mamba = phase("phase 13f: full-width mamba2-370m trains in fp32",
+                          phase_train_mamba)
+    free_memory()
     family = phase("phase 10.0: the new paths' kernel shapes against their "
                    "plain versions", phase_family_kernels)
     free_memory()
@@ -4198,6 +4545,13 @@ def main() -> None:
          trained_bf16["counts"]["bf16_backward_launches"],
          dict(k1_bf16["bwd"], max_abs_err=bwd["bf16"]["worst"]["bwd"])),
     ]
+    # The Mamba2 training path: K3's backward, launched by phase 13f's
+    # steps (its forward launches are counted in the ssd_scan row's path
+    # only where it serves).
+    k3_train = bwd["k3"]["timed"][(SSD_BACKWARD_TRAIN_CASE[:6], "float32")]
+    rows.append(("ssd_scan_bwd", "ssd_scan.py:71",
+                 trained_mamba["counts"]["backward_launches"],
+                 dict(k3_train, max_abs_err=bwd["k3"]["worst"]["float32"][2])))
     sources = {"flash_attention": "flash_attention_bf16",
                "flash_attention_fp32": "flash_attention",
                "flash_attention_bf16_lse": "flash_attention_bf16"}

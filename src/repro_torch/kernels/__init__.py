@@ -9,7 +9,9 @@
 * ``decode_attention`` -- wrapper of kernel K2 (replaces the Pallas
   ``repro.kernels.decode_attention``), with its launch count
 * ``ssd_scan`` -- wrapper of kernel K3 (replaces the Pallas
-  ``repro.kernels.ssd_scan``), with its launch count
+  ``repro.kernels.ssd_scan``), with its launch count; inputs that require
+  grad take its backward kernel (``csrc/ssd_scan_bwd.cu``, which has no
+  Pallas counterpart) through an autograd Function
 * ``ref`` -- plain PyTorch versions
 * ``ops`` -- ``impl`` dispatch between the two
 * ``cases`` -- the shapes and tolerances at which a kernel is held against

@@ -6,8 +6,8 @@ dtype)``; bf16 cases run on its bf16 kernel, fp32 ones on its fp32
 kernel (3xTF32), BACKWARD_CASES on its fp32 backward kernel and
 BACKWARD_BF16_CASES on its bf16 backward kernel.  K2
 (decode attention): ``(B, Hq, Hkv, S, D, index, window, dtype)``.  K3
-(SSD scan): ``(b, S, H, P, N, chunk, dtype)``.  Dtypes are named as torch
-dtypes.
+(SSD scan): ``(b, S, H, P, N, chunk, dtype)``; SSD_BACKWARD_CASES run on
+its backward kernel.  Dtypes are named as torch dtypes.
 """
 from __future__ import annotations
 
@@ -239,6 +239,57 @@ SSD_FAMILY_MAIN_CASES = [
     (1, 1024, 256, 64, 128, 256, "bfloat16"),
     (1, 1024, 8, 64, 32, 32, "bfloat16"),
 ]
+
+
+# K3's backward (csrc/ssd_scan_bwd.cu): every shape of SSD_CASES,
+# SSD_RAGGED_CASES and SSD_CORNER_CASES and the main shape, each in both
+# dtypes; the training shape (the train CLI's 8 x 256 tokens at
+# mamba2-370m's widths, one chunk) and the smoke width of mamba2-370m and
+# jamba (H 8, P 64, N 32, chunk 32) over 2 x 128 tokens, in both dtypes.
+SSD_BACKWARD_TRAIN_CASE = (8, 256, 32, 64, 128, 256, "float32")
+SSD_BACKWARD_SMOKE_CASE = (2, 128, 8, 64, 32, 32, "float32")
+SSD_BACKWARD_CASES = list(dict.fromkeys(
+    c[:6] + (dtype,)
+    for c in (SSD_CASES + SSD_RAGGED_CASES + SSD_CORNER_CASES
+              + [SSD_MAIN_CASE, SSD_BACKWARD_TRAIN_CASE,
+                 SSD_BACKWARD_SMOKE_CASE])
+    for dtype in ("float32", "bfloat16")))
+# Timed beside the plain backward: the training shape, mamba2-370m's heads
+# over 1024 tokens (four chunks) and jamba-1.5-large's (H 256).
+SSD_BACKWARD_TIMED = [SSD_BACKWARD_TRAIN_CASE[:6],
+                      (1, 1024, 32, 64, 128, 256),
+                      (1, 1024, 256, 64, 128, 256)]
+# Each of dx, ddt, dA, dB and dC against the plain backward (autograd
+# through ssd_scan_ref) on the same inputs and cotangents, set before the
+# kernel's first run on the card from a CPU model of its five launches
+# (tests/test_torch_kernels.py: fp32 products, fp64 sums of the decay
+# terms).  fp32: max_ratio at most SSD_BACKWARD_LIMIT, the JAX SSD test's
+# fp32 limit: the model reads 1.4e-7 to 8.6e-7 against the plain backward,
+# and two fp32 gradients that sum in other orders (JAX's jnp ssd_chunked
+# against the plain backward) differ by up to 6.0e-6.  bf16: both sides
+# round the fp32 gradient to bf16 once and mostly agree bit for bit; a
+# rounding that flips moves a value by one bf16 ulp, at most 2^-7 of it.
+# max_ratio at most SSD_BACKWARD_BF16_LIMIT (two ulps of the largest
+# value) and rms(got - want) at most SSD_BACKWARD_BF16_RMS_LIMIT of
+# rms(want), about 10x the model's worst reading (5.1e-5, dB at the
+# training shape's widths; max_ratio 1.1e-3).
+SSD_BACKWARD_LIMIT = 1e-4
+SSD_BACKWARD_BF16_LIMIT = 1.6e-2
+SSD_BACKWARD_BF16_RMS_LIMIT = 5e-4
+
+
+def ssd_backward_check(got, want, dtype: str) -> tuple:
+    """(max_ratio, rms error over rms(want), within the limits) of one
+    gradient of K3's backward against the plain backward's, two torch
+    tensors on any device."""
+    got, want = got.float(), want.float()
+    ratio = max_ratio(got, want)
+    rms = float((got - want).square().mean().sqrt()
+                / (want.square().mean().sqrt() + 1e-30))
+    if dtype == "bfloat16":
+        return (ratio, rms, ratio <= SSD_BACKWARD_BF16_LIMIT
+                and rms <= SSD_BACKWARD_BF16_RMS_LIMIT)
+    return ratio, rms, ratio <= SSD_BACKWARD_LIMIT
 
 
 def ssd_limit(dtype: str) -> float:

@@ -112,3 +112,22 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                             Bf[:, t]))
         ys.append(torch.einsum("bhpn,bn->bhp", h, Cf[:, t]))
     return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+def ssd_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                     B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
+                     dstate: Optional[torch.Tensor] = None) -> tuple:
+    """The plain backward: (dx, ddt, dA, dB, dC) of ``sum(y * dy) +
+    sum(state * dstate)`` for ``(y, state) = ssd_scan_ref(x, dt, A, B,
+    C)``, by ``torch.autograd.grad`` through the token recurrence above.
+    ``dy`` is like x, ``dstate`` (fp32 ``[b, H, P, N]``) may be None (no
+    gradient reaches the final state); each gradient in its input's dtype
+    (the fp32 gradient rounded once)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (x, dt, A, B, C)]
+        y, state = ssd_scan_ref(*leaves)
+        outs, cots = [y], [dy]
+        if dstate is not None:
+            outs.append(state)
+            cots.append(dstate)
+        return torch.autograd.grad(outs, leaves, grad_outputs=cots)

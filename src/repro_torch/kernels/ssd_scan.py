@@ -1,17 +1,27 @@
-"""Wrapper of the Hopper SSD chunk-scan kernel (``csrc/ssd_scan.cu``).
+"""Wrapper of the Hopper SSD chunk-scan kernel (``csrc/ssd_scan.cu``) and
+of its backward (``csrc/ssd_scan_bwd.cu``).
 
 The port's counterpart of the JAX package's Pallas kernel
 ``kernels/ssd_scan.py::ssd_scan``: same layout (x ``[b, S, H, P]``, dt
 ``[b, S, H]``, A ``[H]``, B/C ``[b, S, N]``).  Tensors on the CPU go to
-the plain version (:func:`repro_torch.kernels.ref.ssd_scan_ref`); CUDA
-tensors launch the kernel or raise.  ``ssd_scan.launches`` counts calls
-that launched it.
+the plain version (:func:`repro_torch.kernels.ref.ssd_scan_ref`, which
+autograd differentiates); CUDA tensors launch the kernel or raise.
+``ssd_scan.launches`` counts calls that launched it.
 
 The kernel is chunk-parallel: the chunk states, the recurrence over
 chunks and the chunk outputs are three launches of one call
 (:func:`launch_shape` gives their grids), with the products on the
 tensor cores for bf16 inputs (fp32 operands split into bf16 hi and lo)
 and on the CUDA cores for fp32 ones.
+
+Where an input requires grad under grad mode the call goes through
+``_SsdScanFn``: its forward is the same kernel, keeping the forward's
+scratch (the cumulative dA and the state entering each chunk), and its
+backward the hand-written backward kernel (five launches, fp32 on the
+CUDA cores for both dtypes, :func:`backward_launch_shape`), counted once a
+call in ``ssd_scan.backward_launches``.  The JAX package's Pallas kernel
+has no backward: JAX differentiates its jnp ``ssd_chunked``, and this is
+that gradient.
 
 Unlike the Pallas kernel it returns the final state ``[b, H, P, N]`` in
 fp32 beside y (the model's prefill keeps it), takes any ``S`` and chunk
@@ -24,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -34,7 +45,6 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 64      # P
 MAX_STATE = 128        # N
 TILE = 64              # positions per row tile of the output launch
-BACKWARD_ITEM = "ROADMAP Queue 1 item 12 (K3's backward)"
 
 
 def _check_shapes(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -66,6 +76,20 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _bwd_library() -> ctypes.CDLL:
+    lib = build.load("ssd_scan_bwd")
+    fn = lib.odin_ssd_scan_bwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.odin_ssd_scan_bwd_smem_bytes.argtypes = [ctypes.c_int]
+        lib.odin_ssd_scan_bwd_smem_bytes.restype = ctypes.c_int
+        lib.odin_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.odin_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def launch_shape(b: int, S: int, H: int, P: int, N: int, chunk: int,
                  dtype: torch.dtype) -> dict:
     """The three launches of one call: name -> (grid, threads per block,
@@ -79,8 +103,27 @@ def launch_shape(b: int, S: int, H: int, P: int, N: int, chunk: int,
                                   smem(2, _DTYPES[dtype]))}
 
 
-def _launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-            B: torch.Tensor, C: torch.Tensor, chunk: int) -> tuple:
+def backward_launch_shape(b: int, S: int, H: int, P: int, N: int,
+                          chunk: int) -> dict:
+    """The five launches of one backward call (the same for both dtypes):
+    name -> (grid, threads per block, dynamic shared memory in bytes).
+    The first is skipped when the sequence is one chunk."""
+    chunk = min(chunk, S)
+    nc, tiles = math.ceil(S / chunk), math.ceil(chunk / TILE)
+    smem = _bwd_library().odin_ssd_scan_bwd_smem_bytes
+    shapes = {"ssd_bwd_chunk_dstates": ((nc - 1, H, b), 256, smem(0)),
+              "ssd_bwd_state_pass": ((math.ceil(P * N / 256), H, b), 256, 0),
+              "ssd_bwd_tiles": ((2 * tiles * nc, H, b), 256, smem(2)),
+              "ssd_bwd_chunk_finish": ((nc, H, b), 256, 0),
+              "ssd_bwd_sums": ((math.ceil(max(b * S * N, H) / 256),), 256,
+                               0)}
+    if nc == 1:
+        del shapes["ssd_bwd_chunk_dstates"]
+    return shapes
+
+
+def _check_inputs(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  B: torch.Tensor, C: torch.Tensor) -> None:
     ts = (x, dt, A, B, C)
     if any(t.device != x.device for t in ts):
         raise ValueError("x, dt, A, B and C must lie on one device")
@@ -98,6 +141,21 @@ def _launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError("x, dt, A, B and C need a last-dimension stride "
                          "of 1")
     build.check_copy_strides("the kernel's x, B and C", x, B, C)
+
+
+def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err:
+        msg = lib.odin_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def _launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            B: torch.Tensor, C: torch.Tensor, chunk: int) -> tuple:
+    """One forward call: (y, final state, cs, states), the last two the
+    scratch that the backward reads."""
+    _check_inputs(x, dt, A, B, C)
+    b, S, H, P = x.shape
+    N = B.shape[-1]
     chunk = min(chunk, S)
     y = torch.empty((b, S, H, P), dtype=x.dtype, device=x.device)
     state = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
@@ -118,12 +176,111 @@ def _launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             C.data_ptr(), y.data_ptr(), state.data_ptr(), cs.data_ptr(),
             states.data_ptr(), b, S, H, P, N, chunk,
             ctypes.addressof(strides), _DTYPES[x.dtype], stream)
-    if err:
-        msg = lib.odin_cuda_error_string(err).decode()
-        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err} "
-                           f"({msg})")
+    _raise_on(lib, err, "ssd_scan kernel")
     ssd_scan.launches += 1
-    return y, state
+    return y, state, cs, states
+
+
+def backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, cs: torch.Tensor,
+             states: torch.Tensor, dy: Optional[torch.Tensor],
+             dstate: Optional[torch.Tensor], *, chunk: int = 256) -> tuple:
+    """(dx, ddt, dA, dB, dC) of the scan from its inputs, the forward's
+    scratch ``cs`` and ``states`` (the last two items of one forward call
+    with this ``chunk``), the gradient ``dy`` of y and ``dstate`` of the
+    final state (fp32; None counts as zero, as does a None ``dy``): one
+    call of ``csrc/ssd_scan_bwd.cu`` (five launches, four when S is one
+    chunk), counted in ``ssd_scan.backward_launches``.  Each gradient is
+    contiguous, in its input's dtype.  A ``dy`` whose last stride is not 1
+    (an expanded gradient) is copied once."""
+    _check_shapes(x, dt, A, B, C, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"the backward kernel takes CUDA tensors; got "
+                         f"{x.device}")
+    _check_inputs(x, dt, A, B, C)
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    chunk = min(chunk, S)
+    nc = math.ceil(S / chunk)
+    dev = x.device
+    if dy is None:
+        dy = torch.zeros_like(x)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != dev:
+        raise ValueError(f"dy must be like x {tuple(x.shape)} {x.dtype}; got "
+                         f"{tuple(dy.shape)} {dy.dtype} on {dy.device}")
+    if dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    if dstate is not None:
+        if (tuple(dstate.shape) != (b, H, P, N)
+                or dstate.dtype != torch.float32 or dstate.device != dev):
+            raise ValueError(f"dstate must be fp32 {(b, H, P, N)} on {dev}; "
+                             f"got {tuple(dstate.shape)} {dstate.dtype}")
+        dstate = dstate.contiguous()
+    if (cs.dtype != torch.float32 or tuple(cs.shape) != (b, H, S, 2)
+            or not cs.is_contiguous() or states.dtype != torch.float32
+            or tuple(states.shape) != (b, nc, H, P, N)
+            or not states.is_contiguous()):
+        raise ValueError("cs and states must be the forward's contiguous "
+                         "fp32 scratch for this shape and chunk")
+    f32 = dict(dtype=torch.float32, device=dev)
+    g = torch.empty((b, nc, H, P, N), **f32)
+    part = torch.empty((b, H, S, 4), dtype=torch.float64, device=dev)
+    dBh = torch.empty((b, H, S, N), **f32)
+    dCh = torch.empty((b, H, S, N), **f32)
+    da_part = torch.empty((b, nc, H), dtype=torch.float64, device=dev)
+    dx, ddt, dA, dB, dC = (torch.empty(shape, dtype=x.dtype, device=dev)
+                           for shape in ((b, S, H, P), (b, S, H), (H,),
+                                         (b, S, N), (b, S, N)))
+    strides = (ctypes.c_longlong * 13)(
+        *(x.stride(i) for i in (0, 1, 2)), *(dt.stride(i) for i in (0, 1, 2)),
+        *(B.stride(i) for i in (0, 1)), *(C.stride(i) for i in (0, 1)),
+        *(dy.stride(i) for i in (0, 1, 2)))
+    lib = _bwd_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.odin_ssd_scan_bwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), dy.data_ptr(), cs.data_ptr(), states.data_ptr(),
+            None if dstate is None else dstate.data_ptr(), g.data_ptr(),
+            part.data_ptr(), dBh.data_ptr(), dCh.data_ptr(),
+            da_part.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+            dB.data_ptr(), dC.data_ptr(), b, S, H, P, N, chunk,
+            ctypes.addressof(strides), _DTYPES[x.dtype], stream)
+    _raise_on(lib, err, "ssd_scan backward kernel")
+    ssd_scan.backward_launches += 1
+    return dx, ddt, dA, dB, dC
+
+
+def forward_for_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                         B: torch.Tensor, C: torch.Tensor, *,
+                         chunk: int = 256) -> tuple:
+    """CUDA inputs -> (y, final state, cs, states): one forward launch,
+    with the scratch that :func:`backward` takes."""
+    _check_shapes(x, dt, A, B, C, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"the kernel takes CUDA tensors; got {x.device}")
+    return _launch(x, dt, A, B, C, chunk)
+
+
+class _SsdScanFn(torch.autograd.Function):
+    """K3 with its gradient: the forward kernel, saving its scratch, and
+    the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk: int):
+        y, state, cs, states = _launch(x, dt, A, B, C, chunk)
+        ctx.save_for_backward(x, dt, A, B, C, cs, states)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, dstate):
+        x, dt, A, B, C, cs, states = ctx.saved_tensors
+        grads = backward(x, dt, A, B, C, cs, states, dy, dstate,
+                         chunk=ctx.chunk)
+        return (*grads, None)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -132,10 +289,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (y [b, S, H, P] in x's dtype, final state [b, H, P, N] in fp32).
 
     CPU tensors run the plain version (which has no chunks); CUDA tensors
-    run the kernel with chunks of ``min(chunk, S)`` positions.  The kernel
-    has no backward yet: a CUDA input that requires grad under grad mode
-    raises ``NotImplementedError`` (an output without ``grad_fn`` would
-    drop its gradient silently).
+    run the kernel with chunks of ``min(chunk, S)`` positions, and where an
+    input requires grad under grad mode go through ``_SsdScanFn``, whose
+    backward is the backward kernel.
     """
     _check_shapes(x, dt, A, B, C, chunk)
     if x.device.type == "cpu":
@@ -144,11 +300,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"no ssd_scan for device {x.device}")
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (x, dt, A, B, C)):
-        raise NotImplementedError(
-            f"ssd_scan has no backward kernel on CUDA yet ({BACKWARD_ITEM});"
-            f" run under torch.no_grad() / torch.inference_mode(), or train "
-            f"the Mamba2 families on the CPU")
-    return _launch(x, dt, A, B, C, chunk)
+        return _SsdScanFn.apply(x, dt, A, B, C, chunk)
+    return _launch(x, dt, A, B, C, chunk)[:2]
 
 
 ssd_scan.launches = 0
+ssd_scan.backward_launches = 0

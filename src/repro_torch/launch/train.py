@@ -9,10 +9,9 @@ defaults, plus ``--device`` (default ``cuda``; ``--device cpu`` runs on
 the CPU, and asking for CUDA where there is no card fails).  ``--smoke``
 (the default) selects the reduced config of the same family; ``--full``
 the published one, which trains in fp32 on one card: qwen2-0.5b at full
-width fits an 80 GB H100 at the default batch.  On CUDA the Mamba2
-families (mamba2-370m, jamba) cannot train yet: the SSD scan's kernel has
-no backward (ROADMAP Queue 1 item 12).  The embedding-input archs
-(hubert-xlarge, llava-next-34b) train here; the JAX CLI raises
+width fits an 80 GB H100 at the default batch, as does mamba2-370m (its
+SSD scan trains through the K3 kernel's backward).  The embedding-input
+archs (hubert-xlarge, llava-next-34b) train here; the JAX CLI raises
 ``TypeError`` for them, since it iterates their ``SyntheticEmbeds``.
 """
 from __future__ import annotations

@@ -4,8 +4,11 @@ Mirrors the JAX package's ``models/mamba2.py`` (the discrete SSD form of
 arXiv:2405.21060, ``n_groups = 1``).  Where JAX's :func:`mamba_forward`
 calls the jnp ``ssd_chunked``, the port calls
 :func:`repro_torch.kernels.ops.ssd_scan`: the Hopper kernel on CUDA, the
-plain token recurrence on the CPU.  :func:`ssd_chunked` is kept as the JAX
-model's own chunked form, which the tests hold to JAX's.
+plain token recurrence on the CPU.  Both train: on CUDA the scan's
+gradient is the kernel's backward (``csrc/ssd_scan_bwd.cu``, the gradient
+JAX takes of ``ssd_chunked``), on the CPU autograd through the recurrence.
+:func:`ssd_chunked` is kept as the JAX model's own chunked form, which the
+tests hold to JAX's.
 """
 from __future__ import annotations
 

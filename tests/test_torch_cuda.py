@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import flash_attention as k1_lib  # noqa: E402
+from repro_torch.kernels import ssd_scan as k3_lib  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
     BACKWARD_BF16_CASES,
     BACKWARD_CASES,
@@ -34,6 +35,8 @@ from repro_torch.kernels.cases import (  # noqa: E402
     MAIN_RMS_LIMIT,
     MAIN_TOLERANCE,
     RAGGED_CASES,
+    SSD_BACKWARD_CASES,
+    SSD_BACKWARD_TRAIN_CASE,
     SSD_BATCHED_MAIN_CASE,
     SSD_CASES,
     SSD_CORNER_CASES,
@@ -48,6 +51,7 @@ from repro_torch.kernels.cases import (  # noqa: E402
     case_id,
     decode_case_id,
     max_ratio,
+    ssd_backward_check,
     ssd_case_id,
     ssd_limit,
     tolerance,
@@ -58,6 +62,7 @@ from repro_torch.kernels.ref import (  # noqa: E402
     decode_attention_ref,
     flash_attention_bwd_ref,
     flash_attention_ref,
+    ssd_scan_bwd_ref,
     ssd_scan_ref,
 )
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
@@ -82,6 +87,11 @@ def _to_card(tree: dict) -> dict:
 
 def _rms(t) -> float:
     return float(t.float().square().mean().sqrt())
+
+
+def _widened(tree: dict) -> dict:
+    return {k: _widened(v) if isinstance(v, dict) else v.float()
+            for k, v in tree.items()}
 
 
 def _assert_close_by_rms(got, want, tol: dict, rms_limit: float) -> None:
@@ -801,9 +811,11 @@ def test_kernels_raise_under_grad_on_card(card):
     """bf16 K1 under grad goes through its backward kernel: the gradient
     of flash_attention equals backward()'s on the LSE entry point's saved
     tensors, bit for bit, in the model's strided layout, and the bf16
-    counters move.  K3 has no backward kernel yet and K2 is never
-    differentiated: each raises when an input requires grad under grad
-    mode, and runs under no_grad."""
+    counters move.  K3 under grad gives outputs with a grad_fn, and its
+    gradient comes from one launch of its backward kernel; under
+    inference mode it gives none.  K2 is never differentiated: it raises
+    when an input requires grad under grad mode, and runs under
+    no_grad."""
     B, Hq, Hkv, S, D = 2, 14, 2, 130, 64
     (x,) = _inputs([(B, S, Hq + 2 * Hkv, D)], "bfloat16", seed=19)
     (do,) = _inputs([(B, Hq, S, D)], "bfloat16", seed=20)
@@ -828,10 +840,19 @@ def test_kernels_raise_under_grad_on_card(card):
     x, dt, Bm, Cm = _inputs([(1, 64, 4, 64), (1, 64, 4), (1, 64, 32),
                              (1, 64, 32)], "float32")
     A = -torch.ones(4, device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ssd_scan(x, torch.nn.functional.softplus(dt), A, Bm, Cm, chunk=32)
+    n3 = (ssd_scan.launches, ssd_scan.backward_launches)
+    y, state = ssd_scan(x, torch.nn.functional.softplus(dt), A, Bm, Cm,
+                        chunk=32)
+    assert y.grad_fn is not None and state.grad_fn is not None
+    (gA,) = torch.autograd.grad(y.sum(), A)
+    torch.cuda.synchronize()
+    assert gA.shape == A.shape and bool(torch.isfinite(gA).all())
+    assert (ssd_scan.launches, ssd_scan.backward_launches) == (n3[0] + 1,
+                                                               n3[1] + 1)
     with torch.inference_mode():
-        ssd_scan(x, torch.nn.functional.softplus(dt), A, Bm, Cm, chunk=32)
+        y, _ = ssd_scan(x, torch.nn.functional.softplus(dt), A, Bm, Cm,
+                        chunk=32)
+    assert y.grad_fn is None
     qd, kd, vd = _inputs([(1, 4, 64), (1, 2, 128, 64), (1, 2, 128, 64)],
                          "float32")
     kd.requires_grad_(True)
@@ -894,3 +915,157 @@ def test_train_step_on_card_matches_cpu(card, arch, dtype):
     _, state, metrics = step(p_card, init_adamw(p_card),
                              to_batch(batch, torch.device("cuda")))
     assert int(state["count"]) == 1 and np.isfinite(float(metrics["loss"]))
+
+
+# -- K3's backward kernel -----------------------------------------------------
+
+
+def _ssd_bwd_inputs(case, seed: int, slow: bool) -> tuple:
+    """A case's inputs (as _ssd_inputs), dy in its dtype and an fp32
+    dstate."""
+    b, S, H, P, N, chunk, dtype = case
+    ins = _ssd_inputs(b, S, H, P, N, dtype, seed=seed, slow=slow)
+    dy, dstate = _inputs([(b, S, H, P), (b, H, P, N)], "float32",
+                         seed=seed + 1)
+    return ins, dy.to(ins[0].dtype), dstate
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slow", [False, True], ids=["jax_dt", "slow_decay"])
+@pytest.mark.parametrize("case", SSD_BACKWARD_CASES, ids=ssd_case_id)
+def test_ssd_backward_kernel_matches_plain_version(card, case, slow):
+    """dx, ddt, dA, dB and dC of csrc/ssd_scan_bwd.cu against autograd
+    through the plain scan on the same inputs and cotangents, within the
+    limits of cases.py, twice with the same bits (no atomics), one
+    backward_launches count per call."""
+    chunk, dtype = case[5], case[6]
+    ins, dy, dstate = _ssd_bwd_inputs(case, seed=21, slow=slow)
+    y, state, cs, states = k3_lib.forward_for_backward(*ins, chunk=chunk)
+    n = ssd_scan.backward_launches
+    got = k3_lib.backward(*ins, cs, states, dy, dstate, chunk=chunk)
+    again = k3_lib.backward(*ins, cs, states, dy, dstate, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.backward_launches == n + 2
+    want = ssd_scan_bwd_ref(*ins, dy, dstate)
+    for name, t, g, w, g2 in zip(("dx", "ddt", "dA", "dB", "dC"), ins, got,
+                                 want, again):
+        assert g.shape == t.shape and g.dtype == t.dtype, name
+        assert bool(torch.isfinite(g).all()), name
+        assert ssd_backward_check(g, w, dtype)[2], (
+            name, ssd_backward_check(g, w, dtype))
+        assert torch.equal(g, g2), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_wrapper_gradient_comes_from_the_backward_kernel(card, dtype):
+    """Inputs that require grad in the model's layout (x, B and C views
+    into one conv output): ssd_scan's outputs have a grad_fn, one forward
+    and one backward launch, and autograd's gradients, through y and the
+    final state, are the backward kernel's own output bit for bit."""
+    b, S, H, P, N, chunk = 2, 300, 4, 64, 32, 128
+    (xbc,) = _inputs([(b, S, H * P + 2 * N)], dtype, seed=31)
+    _, dt, A, _, _ = _ssd_inputs(b, S, H, P, N, dtype, seed=32, slow=True)
+    dy, dstate = _inputs([(b, S, H, P), (b, H, P, N)], "float32", seed=33)
+    dy = dy.to(xbc.dtype)
+
+    def split(t):
+        return (t[..., :H * P].reshape(b, S, H, P), t[..., H * P:H * P + N],
+                t[..., H * P + N:])
+
+    leaves = [t.clone().requires_grad_(True) for t in (xbc, dt, A)]
+    x, B, C = split(leaves[0])
+    n = (ssd_scan.launches, ssd_scan.backward_launches)
+    y, state = ops.ssd_scan(x, leaves[1], leaves[2], B, C, chunk=chunk,
+                            impl="cuda")
+    assert y.grad_fn is not None and state.grad_fn is not None
+    gxbc, gdt, gA = torch.autograd.grad((y, state), leaves, (dy, dstate))
+    torch.cuda.synchronize()
+    assert (ssd_scan.launches, ssd_scan.backward_launches) == (n[0] + 1,
+                                                               n[1] + 1)
+    x, B, C = split(xbc)
+    _, _, cs, states = k3_lib.forward_for_backward(x, dt, A, B, C,
+                                                   chunk=chunk)
+    dx, ddt, dA, dB, dC = k3_lib.backward(x, dt, A, B, C, cs, states, dy,
+                                          dstate, chunk=chunk)
+    assert torch.equal(gxbc, torch.cat([dx.reshape(b, S, H * P), dB, dC],
+                                       dim=-1))
+    assert torch.equal(gdt, ddt) and torch.equal(gA, dA)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-370m", "jamba-1.5-large-398b"])
+def test_ssd_gradient_under_remat_is_the_plain_runs(card, arch):
+    """A Mamba2 model's loss and block gradients with remat (each
+    checkpointed block run twice: the backward reads the scratch of the
+    recomputation) equal those without, bit for bit; K3 launches its
+    forward twice per Mamba2 sublayer with remat and once without, its
+    backward once either way.  (The token table's gradient, an indexed
+    sum outside the blocks, is left out.)"""
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.optimizer import leaves
+    from repro_torch.training.train_loop import loss_and_grads, to_batch
+    cfg = get_smoke_config(arch)
+    params = Model(cfg).init_params(0, torch.float32, device="cuda")
+    batch = to_batch(SyntheticLM(cfg.vocab_size, 96, 2).batch_at(0),
+                     torch.device("cuda"))
+    subs = cfg.layer_pattern.count("mamba") * cfg.num_blocks
+    runs = {}
+    for remat in (True, False):
+        n = (ssd_scan.launches, ssd_scan.backward_launches)
+        (loss, _), grads = loss_and_grads(Model(cfg, remat=remat), params,
+                                          batch)
+        torch.cuda.synchronize()
+        assert (ssd_scan.launches - n[0], ssd_scan.backward_launches - n[1]
+                ) == ((2 if remat else 1) * subs, subs)
+        runs[remat] = (loss, leaves(grads["blocks"]))
+    assert torch.equal(runs[True][0], runs[False][0])
+    for a, b in zip(runs[True][1], runs[False][1]):
+        assert torch.equal(a, b)
+
+
+# dtype -> (loss rtol, each gradient leaf's rms error over its rms) of a
+# Mamba2 family's train step with the kernels against the same step with
+# the plain versions on the card: chip_smoke's 13b (fp32) and 13e (bf16)
+# limits.  In bf16 a leaf may also differ by as much as the plain
+# version's own bf16 gradient differs from its fp32 one there: jamba's
+# leaves read up to 0.26 so, 123 of 135 above 5e-2 (chip_smoke 13c on an
+# NVIDIA H100 80GB HBM3 at 700 W).
+MAMBA_TRAIN_LIMITS = {"float32": (1e-5, 1e-4), "bfloat16": (2e-4, 5e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["mamba2-370m", "jamba-1.5-large-398b"])
+def test_mamba_train_step_on_card_matches_plain_path(card, arch, dtype):
+    """One train step's loss and gradients with remat on the card with the
+    kernels (K3's forward and backward) against the plain versions (the
+    token recurrence), at smoke width in fp32 and bf16."""
+    from repro_torch.training.checkpoint import flatten
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.train_loop import loss_and_grads, to_batch
+    loss_rtol, grad_limit = MAMBA_TRAIN_LIMITS[dtype]
+    cfg = get_smoke_config(arch)
+    params = Model(cfg).init_params(0, getattr(torch, dtype), device="cuda")
+    batch = to_batch(SyntheticLM(cfg.vocab_size, 64, 2).batch_at(0),
+                     torch.device("cuda"))
+    model = Model(cfg, remat=True)
+    n = ssd_scan.backward_launches
+    (loss, _), grads = loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    assert ssd_scan.backward_launches == n + cfg.layer_pattern.count(
+        "mamba") * cfg.num_blocks
+    (loss_ref, _), grads_ref = loss_and_grads(model, params, batch,
+                                              impl="ref")
+    floor = {}
+    if dtype == "bfloat16":
+        _, grads_32 = loss_and_grads(model, _widened(params), batch,
+                                     impl="ref")
+        floor = {k: _rms(w.float() - w32) / _rms(w32) for (k, w), w32 in
+                 zip(flatten(grads_ref).items(), flatten(grads_32).values())}
+    assert float(loss) == pytest.approx(float(loss_ref), rel=loss_rtol)
+    for (k, g), w in zip(flatten(grads).items(), flatten(grads_ref).values()):
+        assert g.dtype == w.dtype
+        err = _rms(g.float() - w.float())
+        assert err <= max(grad_limit, floor.get(k, 0.0)) * _rms(w) or (
+            err == 0.0), k

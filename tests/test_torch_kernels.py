@@ -26,8 +26,10 @@ from repro_torch.kernels.ref import (  # noqa: E402
     decode_attention_ref,
     flash_attention_bwd_ref,
     flash_attention_ref,
+    ssd_scan_bwd_ref,
     ssd_scan_ref,
 )
+from repro_torch.kernels import ssd_scan as k3_lib  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.models import mamba2 as port_mamba  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
@@ -50,6 +52,11 @@ from repro_torch.kernels.cases import (  # noqa: E402
     MAIN_RMS_LIMIT,
     MAIN_TOLERANCE,
     RAGGED_CASES,
+    SSD_BACKWARD_CASES,
+    SSD_BACKWARD_LIMIT,
+    SSD_BACKWARD_SMOKE_CASE,
+    SSD_BACKWARD_TIMED,
+    SSD_BACKWARD_TRAIN_CASE,
     SSD_CASES,
     SSD_CORNER_CASES,
     SSD_FAMILY_MAIN_CASES,
@@ -63,6 +70,7 @@ from repro_torch.kernels.cases import (  # noqa: E402
     case_id,
     decode_case_id,
     max_ratio,
+    ssd_backward_check,
     ssd_case_id,
     ssd_limit,
     tolerance,
@@ -1145,3 +1153,266 @@ def test_bf16_backward_rounding_at_one_key(seed):
         True, True, False]
     for g, w in zip(got, want):
         assert bf16_backward_check(g, w)[2]
+
+
+# -- K3's backward: its formulas and the plain version (the kernel runs only
+# on the card) ----------------------------------------------------------------
+
+# The JAX package's SSD_CASES in fp32, each with the JAX test's dt and
+# with a slowly decaying dt (log-uniform in [1e-3, 1e-1], Mamba2's init
+# range): with the JAX test's dt the state barely carries across a chunk,
+# so only the slow draw reaches the terms of the state entering and
+# leaving it.
+SSD_BWD_JAX_CASES = [c for c in SSD_CASES if c[6] == "float32"]
+SSD_DRAWS = ("jax_dt", "slow_decay")
+
+
+def _ssd_bwd_inputs(b, S, H, P, N, draw: str, seed: int = 11) -> tuple:
+    """x, dt, A, B, C, dy and dstate as numpy fp32."""
+    x, dt, A, B, C = _ssd_inputs(b, S, H, P, N, "float32", seed)[2]
+    rng = np.random.default_rng(seed + 1)
+    if draw == "slow_decay":
+        dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1),
+                                (b, S, H))).astype(np.float32)
+    dy = rng.standard_normal((b, S, H, P)).astype(np.float32)
+    dstate = rng.standard_normal((b, H, P, N)).astype(np.float32)
+    return x, dt, A, B, C, dy, dstate
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_ssd_vjp(case: tuple, draw: str) -> tuple:
+    """jax.vjp of the JAX model's ssd_chunked at one case's inputs, with
+    cotangents dy and dstate: (dx, ddt, dA, dB, dC) as numpy."""
+    b, S, H, P, N, chunk, _ = case
+    arrs = [jnp.asarray(a) for a in _ssd_bwd_inputs(b, S, H, P, N, draw)]
+
+    @jax.jit
+    def grads(x, dt, A, B, C, dy, dstate):
+        _, vjp = jax.vjp(functools.partial(jax_mamba.ssd_chunked,
+                                           chunk=chunk), x, dt, A, B, C)
+        return vjp((dy, dstate))
+
+    return tuple(np.asarray(g) for g in grads(*arrs))
+
+
+def _ssd_bwd_launch_model(x, dt, A, B, C, dy, dstate, chunk: int,
+                          drop: str = None) -> tuple:
+    """The formulas of csrc/ssd_scan_bwd.cu's five launches, per chunk and
+    vectorised over batch and heads, in the kernel's precisions: inputs
+    widened to fp32, products in fp32, cs summed in fp64 and kept as fp32
+    (hi, lo) pairs, the row and column sums of s, dcs, its reverse
+    cumulative sum and the dA partials in fp64, each gradient rounded to
+    its input's dtype at the end.  ``drop`` leaves out one term ("carry":
+    exp(cs_last) <h-, G> in dcs_last; "state_du": G B_j in du_j), for the
+    check that the limits and the draws see it."""
+    b, S, H, P = x.shape
+    xf, dtf, Bf, Cf, dyf = (t.float() for t in (x, dt, B, C, dy))
+    a = dtf * A.float()
+    chunk = min(chunk, S)
+    spans = [(c0, min(c0 + chunk, S)) for c0 in range(0, S, chunk)]
+    hi, lo = torch.empty_like(a), torch.empty_like(a)
+    for c0, c1 in spans:                     # the forward's cs pairs
+        cs = torch.cumsum(a[:, c0:c1].double(), 1)
+        hi[:, c0:c1] = cs.float()
+        lo[:, c0:c1] = (cs - cs.float().double()).float()
+    pair = hi + lo                           # exp(cs_i) takes hi + lo
+
+    def decay(i, j):                         # exp(cs_i - cs_j), [b, i, j, H]
+        return torch.exp((hi[:, i, None] - hi[:, None, j])
+                         + (lo[:, i, None] - lo[:, None, j]))
+
+    u = xf * dtf[..., None]
+    entering, h = [], torch.zeros((b, H, P, B.shape[-1]))
+    for c0, c1 in spans:                     # the forward's states
+        entering.append(h)
+        t = torch.arange(c0, c1)
+        w = decay(torch.tensor([c1 - 1]), t)[:, 0]
+        own = torch.einsum("blh,blhp,bln->bhpn", w, u[:, c0:c1],
+                           Bf[:, c0:c1])
+        h = h * torch.exp(pair[:, c1 - 1])[..., None, None] + own
+    # Launches 1 and 2: G_c, the gradient of the state leaving chunk c.
+    leaving = [None] * len(spans)
+    g = torch.zeros_like(h) if dstate is None else dstate.float()
+    for c in reversed(range(len(spans))):
+        c0, c1 = spans[c]
+        leaving[c] = g
+        own = torch.einsum("blh,blhp,bln->bhpn", torch.exp(pair[:, c0:c1]),
+                           dyf[:, c0:c1], Cf[:, c0:c1])
+        g = torch.exp(pair[:, c1 - 1])[..., None, None] * g + own
+    dx, ddt = torch.empty_like(xf), torch.empty_like(dtf)
+    dBh = torch.empty((b, H, S, B.shape[-1]))
+    dCh = torch.empty_like(dBh)
+    dA = torch.zeros(H, dtype=torch.float64)
+    for c, (c0, c1) in enumerate(spans):
+        t = torch.arange(c0, c1)
+        Cc, Bc = Cf[:, c0:c1], Bf[:, c0:c1]
+        dyc, uc = dyf[:, c0:c1], u[:, c0:c1]
+        G, Hm = leaving[c], entering[c]
+        # Launch 3: the scores, W = (C_i . B_j) L, M = (dy_i . u_j) L and
+        # s = W (dy_i . u_j), with L an exact 0 where j > i.
+        keep = torch.tril(torch.ones(len(t), len(t), dtype=torch.bool))
+        L = torch.where(keep[None, :, :, None], decay(t, t), 0.0)
+        L = L.permute(0, 3, 1, 2)                          # [b, H, i, j]
+        CB = torch.einsum("bin,bjn->bij", Cc, Bc)[:, None]
+        DU = torch.einsum("bihp,bjhp->bhij", dyc, uc)
+        W, M = CB * L, DU * L
+        s = (W * DU).double()
+        e_last = decay(torch.tensor([c1 - 1]), t)[:, 0].transpose(1, 2)
+        e_in = torch.exp(pair[:, c0:c1]).transpose(1, 2)  # [b, H, i]
+        GB = torch.einsum("bjn,bhpn->bhjp", Bc, G)
+        GU = torch.einsum("bjhp,bhpn->bhjn", uc, G)
+        HD = torch.einsum("bihp,bhpn->bhin", dyc, Hm)
+        du = torch.einsum("bhij,bihp->bhjp", W, dyc)
+        if drop != "state_du":
+            du = du + e_last[..., None] * GB
+        dBh[:, :, c0:c1] = (torch.einsum("bhij,bin->bhjn", M, Cc)
+                            + e_last[..., None] * GU)
+        dCh[:, :, c0:c1] = (torch.einsum("bhij,bjn->bhin", M, Bc)
+                            + e_in[..., None] * HD)
+        w = (e_last * (GU * Bc[:, None]).sum(-1)).double()
+        r = (e_in * (HD * Cc[:, None]).sum(-1)).double()
+        du = du.transpose(1, 2)                            # [b, j, H, P]
+        dx[:, c0:c1] = dtf[:, c0:c1, :, None] * du
+        # Launch 4: dcs, its reverse cumulative sum da, ddt, dA's share.
+        dcs = s.sum(-1) - s.sum(-2) + r - w                # [b, H, l]
+        if drop != "carry":
+            dcs[..., -1] += (torch.exp(pair[:, c1 - 1]).double()
+                             * (Hm.double() * G.double()).sum((-1, -2)))
+        dcs[..., -1] += w.sum(-1)
+        da = dcs.flip(-1).cumsum(-1).flip(-1).transpose(1, 2)  # [b, l, H]
+        ddt[:, c0:c1] = ((xf[:, c0:c1] * du).sum(-1).double()
+                         + A.float().double() * da).float()
+        dA += (dtf[:, c0:c1].double() * da).sum((0, 1))
+    # Launch 5: the head sums of dB and dC, dA's sum.
+    out = (dx, ddt, dA.float(), dBh.sum(1), dCh.sum(1))
+    return tuple(g.to(t.dtype) for g, t in zip(out, (x, dt, A, B, C)))
+
+
+@pytest.mark.parametrize("draw", SSD_DRAWS)
+@pytest.mark.parametrize("case", SSD_BWD_JAX_CASES, ids=ssd_case_id)
+def test_ssd_scan_bwd_ref_matches_jax_vjp(case, draw):
+    """The plain backward (autograd through the token recurrence) against
+    jax.vjp of the JAX model's ssd_chunked, with random cotangents on y
+    and on the final state: each gradient within the JAX SSD test's fp32
+    limit of max |ref|."""
+    b, S, H, P, N, chunk, dtype = case
+    arrs = [torch.from_numpy(a) for a in _ssd_bwd_inputs(b, S, H, P, N, draw)]
+    got = ssd_scan_bwd_ref(*arrs)
+    for name, t, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), arrs, got,
+                             _jax_ssd_vjp(case, draw)):
+        assert g.shape == t.shape and g.dtype == t.dtype, name
+        assert max_ratio(g.numpy(), w) < ssd_limit(dtype), name
+
+
+@pytest.mark.parametrize("draw", SSD_DRAWS)
+@pytest.mark.parametrize("case", SSD_BWD_JAX_CASES, ids=ssd_case_id)
+def test_ssd_bwd_launch_model_matches_jax_vjp(case, draw):
+    """The backward kernel's formulas, in its precisions, against jax.vjp
+    of ssd_chunked: each gradient within the fp32 limit."""
+    b, S, H, P, N, chunk, dtype = case
+    arrs = [torch.from_numpy(a) for a in _ssd_bwd_inputs(b, S, H, P, N, draw)]
+    got = _ssd_bwd_launch_model(*arrs, chunk)
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got,
+                          _jax_ssd_vjp(case, draw)):
+        assert max_ratio(g.numpy(), w) < ssd_limit(dtype), name
+
+
+@pytest.mark.parametrize("draw", SSD_DRAWS)
+@pytest.mark.parametrize("case", SSD_RAGGED_CASES, ids=ssd_case_id)
+def test_ssd_bwd_launch_model_matches_plain_backward(case, draw):
+    """Where JAX's ssd_chunked refuses the shape (S not a multiple of the
+    chunk: a short last chunk), the formulas against the plain backward,
+    in the case's dtype, at the card's limits (cases.py)."""
+    b, S, H, P, N, chunk, dtype = case
+    tdt = DTYPES[dtype][1]
+    arrs = [torch.from_numpy(a).to(tdt)
+            for a in _ssd_bwd_inputs(b, S, H, P, N, draw)]
+    arrs[-1] = arrs[-1].float()                  # the state is fp32
+    got = _ssd_bwd_launch_model(*arrs, chunk)
+    want = ssd_scan_bwd_ref(*arrs)
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        assert g.dtype == w.dtype == tdt, name
+        assert ssd_backward_check(g, w, dtype)[2], (name, ssd_backward_check(
+            g, w, dtype))
+
+
+@pytest.mark.parametrize("drop", ["carry", "state_du"])
+def test_ssd_bwd_limits_see_the_state_terms_only_with_slow_decay(drop):
+    """Leaving out a term of the state (the carry's decay in dcs_last, or
+    G B_j in du_j) breaks the fp32 limit on the slow draw.  With the JAX
+    test's dt the state decays within a chunk (exp(cs_last) about 1e-11 at
+    chunk 32), so the carry's term passes there unseen: the reason both
+    draws are checked."""
+    case = SSD_BWD_JAX_CASES[1]
+    b, S, H, P, N, chunk, _ = case
+    seen = {}
+    for draw in SSD_DRAWS:
+        arrs = [torch.from_numpy(a)
+                for a in _ssd_bwd_inputs(b, S, H, P, N, draw)]
+        got = _ssd_bwd_launch_model(*arrs, chunk, drop=drop)
+        seen[draw] = max(max_ratio(g.numpy(), w) for g, w in
+                         zip(got, _jax_ssd_vjp(case, draw)))
+    assert seen["slow_decay"] > 10 * SSD_BACKWARD_LIMIT, seen
+    if drop == "carry":
+        assert seen["jax_dt"] < SSD_BACKWARD_LIMIT, seen
+
+
+def test_ssd_wrapper_gradient_on_cpu_is_the_plain_backward():
+    """On the CPU the wrapper runs the differentiable plain version: its
+    autograd gradient, through y and the final state, is ssd_scan_bwd_ref's
+    bit for bit, and nothing launches."""
+    b, S, H, P, N = 1, 40, 2, 8, 8
+    arrs = [torch.from_numpy(a)
+            for a in _ssd_bwd_inputs(b, S, H, P, N, "slow_decay")]
+    counts = (ssd_scan.launches, ssd_scan.backward_launches)
+    leaves = [t.clone().requires_grad_(True) for t in arrs[:5]]
+    y, state = ssd_scan(*leaves, chunk=16)
+    assert y.grad_fn is not None and state.grad_fn is not None
+    torch.autograd.backward((y, state), (arrs[5], arrs[6]))
+    want = ssd_scan_bwd_ref(*arrs)
+    for t, w in zip(leaves, want):
+        torch.testing.assert_close(t.grad, w, rtol=0, atol=0)
+    assert counts == (ssd_scan.launches, ssd_scan.backward_launches)
+
+
+def test_ssd_backward_entry_refuses_cpu_tensors():
+    arrs = [torch.from_numpy(a)
+            for a in _ssd_bwd_inputs(1, 32, 2, 8, 8, "jax_dt")]
+    x, dt, A, B, C, dy, _ = arrs
+    cs = torch.zeros((1, 2, 32, 2))
+    states = torch.zeros((1, 1, 2, 8, 8))
+    n = ssd_scan.backward_launches
+    with pytest.raises(ValueError, match="CUDA"):
+        k3_lib.backward(x, dt, A, B, C, cs, states, dy, None, chunk=32)
+    with pytest.raises(ValueError, match="CUDA"):
+        k3_lib.forward_for_backward(x, dt, A, B, C, chunk=32)
+    assert ssd_scan.backward_launches == n
+
+
+def test_ssd_backward_cases_cover_the_paths():
+    """Both dtypes of every forward case and of the main shape, the
+    training shape at mamba2-370m's widths and the smoke width of both
+    Mamba2 families; the timed shapes are the training shape, mamba2-370m's
+    heads over 1024 tokens and jamba-1.5-large's."""
+    from repro_torch.configs import get_config, get_smoke_config
+    shapes = {c[:6] for c in SSD_BACKWARD_CASES}
+    for c in SSD_CASES + SSD_RAGGED_CASES + SSD_CORNER_CASES + [SSD_MAIN_CASE]:
+        assert {c[:6] + (d,) for d in ("float32", "bfloat16")} <= set(
+            SSD_BACKWARD_CASES)
+    assert len(set(SSD_BACKWARD_CASES)) == len(SSD_BACKWARD_CASES)
+
+    def widths(cfg):
+        s = cfg.ssm
+        return (s.num_heads(cfg.d_model), s.head_dim, s.d_state, s.chunk_size)
+
+    full, smoke = get_config("mamba2-370m"), get_smoke_config("mamba2-370m")
+    assert SSD_BACKWARD_TRAIN_CASE[:6] == (8, 256) + widths(full)
+    assert SSD_BACKWARD_SMOKE_CASE[2:6] == widths(smoke) == widths(
+        get_smoke_config("jamba-1.5-large-398b"))
+    assert {SSD_BACKWARD_TRAIN_CASE[:6], SSD_BACKWARD_SMOKE_CASE[:6]} <= shapes
+    jamba = get_config("jamba-1.5-large-398b")
+    assert [t[2:] for t in SSD_BACKWARD_TIMED] == [widths(full)] * 2 + [
+        widths(jamba)]
+    for b, S, H, P, N, chunk, dtype in SSD_BACKWARD_CASES:
+        assert P <= k3_lib.MAX_HEAD_DIM and N <= k3_lib.MAX_STATE
+        assert P % 8 == 0 and N % 8 == 0 and chunk >= 1
