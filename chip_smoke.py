@@ -16,13 +16,14 @@ time.
    source, all started together; ``ptxas``' registers, spills and the
    dynamic shared memory of K1's kernels (both instantiations of the bf16
    forward), of its backwards' launches, of K3's three launches (with
-   their grids at mamba2-370m's shape) and of K3's five backward launches
-   (with their grids at mamba2-370m's training shape); the TF32
-   tensor-core instructions (``HMMA.1688.F32.TF32`` in ``cuobjdump
-   -sass``) of each fp32 kernel and the wgmma ones (``HGMMA``) of the bf16
-   backward's tile kernels, which
-   must not be 0, with those kernels' threads, registers and dynamic
-   shared memory; ptxas must report no spill in them.
+   their grids at mamba2-370m's shape in bf16 and at its training shape
+   in fp32) and of K3's five backward launches (with their grids at
+   mamba2-370m's training shape); the TF32 tensor-core instructions
+   (``HMMA.1688.F32.TF32`` in ``cuobjdump -sass``) of each fp32 kernel, K3's
+   fp32 launches among them (beside their ``FFMA`` count), and the wgmma
+   ones (``HGMMA``) of the bf16 backward's tile kernels, which must not be
+   0, with those kernels' threads, registers and dynamic shared memory;
+   ptxas must report no spill in them nor in K3's forward.
 3. K1 (flash attention) against its plain version on the card, at the
    shapes and tolerances of ``repro_torch.kernels.cases``: the JAX
    package's FLASH_CASES shapes in fp32 (tolerance 2e-5; the fp32 kernel,
@@ -54,7 +55,10 @@ time.
    function), and times the kernel at S 1025 (chunk 256, a one-token last
    chunk), which may take at most 1.2x its time at S 1024.  The batched
    path's shape (SSD_BATCHED_MAIN_CASE, b 8) is held at the main limits and
-   timed too.
+   timed too.  K3's fp32 route (3xTF32, what every fp32 Mamba2 train step
+   runs) is held the same way, with y at the fp32 limit, at
+   SSD_FP32_MAIN_CASES (the training shape, b 8 x S 256; S 1024 at 32 and
+   at jamba's 256 heads), and timed beside its plain version and its bound.
 5. K2 (decode attention) against its plain version: DECODE_CASES, ragged
    ones and the corners of its split (DECODE_CORNER_CASES; 2e-5 in fp32,
    5e-2 in bf16), stale slots past ``index`` set to +-99, and qwen3-4b's
@@ -358,6 +362,7 @@ from repro_torch.kernels.cases import (  # noqa: E402
     SSD_CASES,
     SSD_CORNER_CASES,
     SSD_FAMILY_MAIN_CASES,
+    SSD_FP32_MAIN_CASES,
     SSD_MAIN_CASE,
     SSD_MAIN_RMS_LIMIT,
     SSD_MAIN_TOLERANCE,
@@ -726,31 +731,34 @@ def ssd_work(b, S, H, P, N, chunk, elem_bytes) -> tuple:
     """K3's (flops, bytes): x, dt, A, B, C read once, y and the fp32 final
     state written once; the products of the chunked form, C.B^T once per
     chunk (it is shared by the heads), per head the masked scores times
-    x dt, the state read and the state update."""
+    x dt, the state update and, past the first chunk, the state read."""
     flops = 0
     for c0 in range(0, S, chunk):
         cl = min(chunk, S - c0)
         pairs = cl * (cl + 1) // 2
         flops += b * 2 * pairs * N
-        flops += b * H * (2 * pairs * P + 2 * cl * N * P + 2 * cl * P * N)
+        flops += b * H * (2 * pairs * P + 2 * cl * P * N
+                          + (c0 > 0) * 2 * cl * N * P)
     nbytes = ((2 * b * S * H * P + b * S * H + 2 * b * S * N + H)
               * elem_bytes + b * H * P * N * 4)
     return flops, nbytes
 
 
-def ssd_executed(b, S, H, chunk) -> int:
-    """The operations K3's bf16 route runs on the tensor cores: 64-row
-    tiles, P padded to 64 and N to 128, C.B^T per head and key tile at or
-    before the row tile, the products with an fp32 operand three times
-    (its three bf16 terms)."""
+def ssd_executed(b, S, H, chunk, fp32: bool = False) -> int:
+    """The operations K3 runs on the tensor cores: 64-row tiles, P padded
+    to 64 and N to 128, C.B^T per head and key tile at or before the row
+    tile, the products with an fp32 operand three times (the bf16 route's
+    three bf16 terms; the fp32 route takes every product, C.B^T too, as
+    three TF32 products)."""
     T, PP, NP = 64, 64, 128
+    scores = 3 if fp32 else 1
     flops = 0
     for c0 in range(0, S, chunk):
         tiles = -(-min(chunk, S - c0) // T)
         flops += 3 * 2 * PP * NP * T * tiles             # the chunk's state
         flops += (c0 > 0) * tiles * 3 * 2 * T * NP * PP  # state read
         pairs = tiles * (tiles + 1) // 2                 # (row, key) tiles
-        flops += pairs * (2 * T * T * NP + 3 * 2 * T * T * PP)
+        flops += pairs * (scores * 2 * T * T * NP + 3 * 2 * T * T * PP)
     return b * H * flops
 
 
@@ -796,6 +804,15 @@ def hmma_counts(name: str, op: str) -> dict:
                           text=True, check=True).stdout
     return {part.split()[0]: part.count(op)
             for part in re.split(r"\n\s*Function : ", sass)[1:]}
+
+
+def k3_label(mangled: str) -> str:
+    """A K3 kernel's mangled name as ``function<float>`` (or
+    ``<__nv_bfloat16>``, or the bare name of the state pass)."""
+    name = next(k for k in K3_FWD_KERNELS if k in mangled)
+    if "IfE" in mangled:
+        return f"{name}<float>"
+    return f"{name}<__nv_bfloat16>" if "bfloat16" in mangled else name
 
 
 def ptxas_lines(nvcc_log: str) -> list:
@@ -1023,7 +1040,51 @@ def phase_ssd_check() -> dict:
         f"{grid_line(k3_lib.launch_shape(b, S, H, P, N, chunk, xb.dtype))}")
     return dict(max_abs_err=max(errs), ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                batched_ms=b_ms)
+                batched_ms=b_ms, fp32=ssd_fp32_check(gen))
+
+
+def ssd_fp32_check(gen) -> dict:
+    """K3's fp32 route (3xTF32) where the train step runs it
+    (SSD_FP32_MAIN_CASES), in the model's strided layout with the JAX
+    test's dt and a slowly decaying one: y at the fp32 JAX limit,
+    SSD_MAIN_TOLERANCE and SSD_MAIN_RMS_LIMIT, the state at
+    SSD_STATE_RMS_LIMIT; then timed beside its plain version and its
+    bound (the lesser of the fp32-core and 3xTF32 operation bounds, against
+    the bytes).  Returns each case's readings by its shape."""
+    out = {}
+    for case in SSD_FP32_MAIN_CASES:
+        b, S, H, P, N, chunk, dtype = case
+        errs = []
+        for slow in (True, False):       # the times below take JAX's draw
+            xbc = randn(gen, (b, S, H * P + 2 * N), dtype)
+            x = xbc[..., :H * P].reshape(b, S, H, P)
+            _, dt, A, _, _ = ssd_inputs(gen, b, S, H, P, N, dtype, slow)
+            B, C = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+            gy, _, _ = check_ssd_main(
+                f"K3 fp32 {case[:6]}, {'slow' if slow else 'JAX'} dt", x, dt,
+                A, B, C, chunk, dtype)
+            errs.append(gy["max_abs_err"])
+        ms = time_ms(lambda: ops.ssd_scan(x, dt, A, B, C, chunk=chunk,
+                                          impl="cuda"))
+        plain_ms = time_ms(lambda: ssd_scan_ref(x, dt, A, B, C), reps=5,
+                           warmup=1)
+        needed, nbytes = ssd_work(b, S, H, P, N, chunk, 4)
+        (bound_ms, bound_by), cuda, tf32 = fp32_bounds(needed, nbytes)
+        executed = ssd_executed(b, S, H, chunk, fp32=True)
+        log(f"  K3 fp32 {case[:6]}: kernel_ms {ms:.4f}  plain_ms "
+            f"{plain_ms:.4f}  library_ms none (no single PyTorch call)  "
+            f"bound_ms {bound_ms:.5f} ({bound_by}: {needed / 1e9:.3f} GFLOP "
+            f"needed, as 3xTF32 at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s "
+            f"{tf32[0]:.5f} ms, on the fp32 cores at "
+            f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s {cuda[0]:.5f} ms; "
+            f"{nbytes / 1e6:.2f} MB {1e3 * nbytes / PEAK_HBM_BYTES:.5f} ms); "
+            f"{executed / 1e9:.3f} GFLOP of TF32 products executed, "
+            f"{executed / ms / 1e9:.2f} TFLOP/s; "
+            f"{grid_line(k3_lib.launch_shape(b, S, H, P, N, chunk, x.dtype))}")
+        out[case[:6]] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=None)
+    return out
 
 
 def grid_line(shapes: dict) -> str:
@@ -4320,16 +4381,36 @@ def main() -> None:
             log(f"  K1 tensor-core kernel, head dims padded to {dp}"
                 f"{' (LSE entry)' if lse == '1' else ''}: {line}, "
                 f"{smem(int(dp))} B dynamic shared memory")
-        b, S, H, P, N, chunk, _ = SSD_MAIN_CASE
-        shapes = k3_lib.launch_shape(b, S, H, P, N, chunk, torch.bfloat16)
+        # K3's forward: bf16 at the serving shape, fp32 (3xTF32) at the
+        # training shape; the state pass is not a template.
+        k3_cases = {"bf16": SSD_MAIN_CASE, "fp32": SSD_BACKWARD_TRAIN_CASE}
+        spilled = []
         for name, line in ptxas_lines(logs["ssd_scan"] or ""):
-            launch = next(k for k in shapes if k in name)
-            if "bfloat16" not in name and launch != "ssd_state_pass":
-                continue                 # the fp32 instantiation
-            grid, threads, smem_bytes = shapes[launch]
-            log(f"  K3 {launch} (bf16) at {SSD_MAIN_CASE}: grid {grid} = "
-                f"{int(np.prod(grid))} blocks of {threads} threads, {line}, "
-                f"{smem_bytes} B dynamic shared memory")
+            launch = next(k for k in K3_FWD_KERNELS if k in name)
+            dtype = "bf16" if "bfloat16" in name else "fp32"
+            case = k3_cases[dtype]
+            grid, threads, smem_bytes = k3_lib.launch_shape(
+                *case[:6], getattr(torch, case[6]))[launch]
+            log(f"  K3 {launch}"
+                + ("" if launch == "ssd_state_pass" else f" ({dtype})")
+                + f" at {case}: grid {grid} = {int(np.prod(grid))} blocks of "
+                f"{threads} threads, {line}, {smem_bytes} B dynamic shared "
+                f"memory")
+            if "0 B spill stores, 0 B spill loads" not in line:
+                spilled.append((name, line))
+        if spilled:
+            raise AssertionError(f"ssd_scan: ptxas spilled: {spilled}")
+        # The fp32 route's products are TF32 mma.sync (3xTF32), with no
+        # product loop left on the CUDA cores.
+        tf32 = hmma_counts("ssd_scan", "HMMA.1688.F32.TF32")
+        ffma = hmma_counts("ssd_scan", "FFMA")
+        for fn, n in tf32.items():
+            log(f"  ssd_scan.cu {k3_label(fn)}: {n} HMMA.1688.F32.TF32, "
+                f"{ffma[fn]} FFMA")
+        routes = [n for fn, n in tf32.items() if "IfE" in fn]
+        if len(routes) != 2 or min(routes) == 0:
+            raise AssertionError(f"ssd_scan: an fp32 launch has no TF32 "
+                                 f"tensor-core instruction: {tf32}")
         b, S, H, P, N, chunk, _ = SSD_BACKWARD_TRAIN_CASE
         shapes = k3_lib.backward_launch_shape(b, S, H, P, N, chunk)
         long_shapes = k3_lib.backward_launch_shape(*SSD_BACKWARD_TIMED[1])
@@ -4552,9 +4633,17 @@ def main() -> None:
     rows.append(("ssd_scan_bwd", "ssd_scan.py:71",
                  trained_mamba["counts"]["backward_launches"],
                  dict(k3_train, max_abs_err=bwd["k3"]["worst"]["float32"][2])))
+    # K3's fp32 forward (3xTF32), launched twice a block by 13f's steps
+    # (remat), at the training shape.
+    k3_fp32 = k3["fp32"]
+    rows.append(("ssd_scan_fp32", "ssd_scan.py:71",
+                 trained_mamba["counts"]["launches"],
+                 dict(k3_fp32[SSD_BACKWARD_TRAIN_CASE[:6]], max_abs_err=max(
+                     m["max_abs_err"] for m in k3_fp32.values()))))
     sources = {"flash_attention": "flash_attention_bf16",
                "flash_attention_fp32": "flash_attention",
-               "flash_attention_bf16_lse": "flash_attention_bf16"}
+               "flash_attention_bf16_lse": "flash_attention_bf16",
+               "ssd_scan_fp32": "ssd_scan"}
     kernels = [{
         "name": name,
         "route": "cuda",

@@ -248,6 +248,13 @@ SSD_FAMILY_MAIN_CASES = [
 # jamba (H 8, P 64, N 32, chunk 32) over 2 x 128 tokens, in both dtypes.
 SSD_BACKWARD_TRAIN_CASE = (8, 256, 32, 64, 128, 256, "float32")
 SSD_BACKWARD_SMOKE_CASE = (2, 128, 8, 64, 32, 32, "float32")
+# K3's fp32 forward (3xTF32) where the train step runs it: the training
+# shape, mamba2-370m's heads over 1024 tokens (four chunks) and jamba's
+# (H 256); held at the main limits above with the fp32 JAX limit, and
+# timed.
+SSD_FP32_MAIN_CASES = [SSD_BACKWARD_TRAIN_CASE,
+                       (1, 1024, 32, 64, 128, 256, "float32"),
+                       (1, 1024, 256, 64, 128, 256, "float32")]
 SSD_BACKWARD_CASES = list(dict.fromkeys(
     c[:6] + (dtype,)
     for c in (SSD_CASES + SSD_RAGGED_CASES + SSD_CORNER_CASES

@@ -31,37 +31,55 @@
 //    and the read of the entering state.  Two warps share 16 rows, each
 //    taking half of every key tile (and of N), and add their sums at the
 //    end.  Blocks with the most key tiles go first; key tiles stream
-//    through two stages of shared memory.
+//    through two stages of shared memory (one for fp32 inputs, with two
+//    blocks an SM).
 //
-// The products run on the tensor cores with mma.sync m16n8k16 (bf16 in,
-// fp32 accumulate), their bf16 operands read by ldmatrix.  A chunk's tiles
-// are ragged at the chunk's and the sequence's end (a short last chunk,
-// chunk 96 or 37, S 17), and P and N may be 32: mma.sync's 16 x 8 tiles
-// follow such edges where wgmma's 64-row tiles and swizzled layouts would
-// not, and the operations are far from the bound either way.
+// The products run on the tensor cores with mma.sync.  A chunk's tiles are
+// ragged at the chunk's and the sequence's end (a short last chunk, chunk
+// 96 or 37, S 17), and P and N may be 32: mma.sync's 16 x 8 tiles follow
+// such edges where wgmma's 64-row tiles and swizzled layouts would not, and
+// the operations are far from the bound either way.
 //
-// Three operands are fp32: the decay-weighted scores, exp(cs_last - cs_j)
-// dt_j x_j and the state h.  Each is split into three bf16 terms, v =
-// bf16(v) + bf16(rest) + bf16(rest'), and the product runs three times: y
-// is rounded to bf16, and a relative difference d before that rounding
-// flips roundings at an rms of about sqrt(d) of a bf16 ulp, so the two
-// terms of a hi / lo split (d about 2^-17) would leave y's rms error at
-// half its limit, three terms at the fp32 floor.  C . B^T (two bf16
-// operands) runs once and is exact with fp32 accumulation.  The cumulative
-// sum cs is summed in fp64 and kept as an fp32 (hi, lo) pair: where dt A is
-// large (the JAX test's dt) |cs| reaches hundreds within a chunk, and
-// cs_i - cs_j of fp32 sums carries an error of ulp(|cs|), about 3e-5, into
-// each decay weight.  fp32 inputs take the same three launches with the
-// products on the fp32 CUDA cores (the fp32 limit is beyond bf16 operands).
-// Tiles come in by 16-byte cp.async; rows past the end are zero-filled.
-// Pairs j > i are an exact 0, never exp(+x).
+// bf16 inputs take m16n8k16 (bf16 in, fp32 accumulate) with their bf16
+// operands read by ldmatrix.  Three operands are fp32: the decay-weighted
+// scores, exp(cs_last - cs_j) dt_j x_j and the state h.  Each is split into
+// three bf16 terms, v = bf16(v) + bf16(rest) + bf16(rest'), and the product
+// runs three times: y is rounded to bf16, and a relative difference d
+// before that rounding flips roundings at an rms of about sqrt(d) of a bf16
+// ulp, so the two terms of a hi / lo split (d about 2^-17) would leave y's
+// rms error at half its limit, three terms at the fp32 floor.  C . B^T (two
+// bf16 operands) runs once and is exact with fp32 accumulation.
+//
+// fp32 inputs take m16n8k8 with TF32 operands (tf32_mma.cuh), every
+// product in 3xTF32: each fp32 operand is split into hi = tf32(v) and lo =
+// tf32(v - hi) as its fragment is read, and the product runs as lo.hi +
+// hi.lo + hi.hi, about 22 bits (one TF32 product keeps 11 and misses the
+// fp32 limit).  The weighted scores leave their product in the accumulator
+// layout and enter the next one as its A fragment in registers: the k
+// slots t and t + 4 of m16n8k8 take the slice's keys 2t and 2t + 1, the
+// columns a lane holds.  Each product orders its k slots so that its reads
+// of the padded tiles are free of bank conflicts.
+//
+// The cumulative sum cs is summed in fp64 and kept as an fp32 (hi, lo)
+// pair: where dt A is large (the JAX test's dt) |cs| reaches hundreds
+// within a chunk, and cs_i - cs_j of fp32 sums carries an error of
+// ulp(|cs|), about 3e-5, into each decay weight.  Tiles come in by 16-byte
+// cp.async; rows past the end are zero-filled.  Pairs j > i are an exact 0,
+// never exp(+x).
 //
 // Measured (chip_smoke.py and tools/k23_variants.py on an NVIDIA H100 80GB
-// HBM3 at 700 W): 0.073 ms at the shape above, against 0.936 ms for the
-// first design (one block per head, fp32 CUDA cores); launch 3 takes about
-// 47 us of it, launch 1 15 us, launch 2 4 us.  That is 25x the byte bound,
-// with 8% of the bf16 tensor-core peak executed and 4% of HBM's rate used:
-// 16 warps an SM each wait on their own chain of ldmatrix, mma and expf.
+// HBM3 at 700 W), bf16: 0.073 ms at the shape above, against 0.936 ms for
+// the first design (one block per head, fp32 CUDA cores); launch 3 takes
+// about 47 us of it, launch 1 15 us, launch 2 4 us.  That is 25x the byte
+// bound, with 8% of the bf16 tensor-core peak executed and 4% of HBM's rate
+// used: 16 warps an SM each wait on their own chain of ldmatrix, mma and
+// expf.  fp32 at the training shape (b 8, S 256, H 32, one chunk): 0.221
+// ms, against 0.785 ms when its products ran on the fp32 CUDA cores
+// (tools/k23_variants.py, both in one process); launch 3 takes 0.149 ms of
+// it (two blocks an SM; one block with two stages took 0.176), launch 1
+// 0.039, launch 2 0.023.  That is 16x its operation bound (2.22 GFLOP as
+// 3xTF32 at 495 TFLOP/s, 0.0134 ms), with 69 TFLOP/s of TF32 products
+// executed (chip_smoke.py), about a quarter of what mma.sync reaches.
 //
 // Layout: x [b, S, H, P], dt [b, S, H], B and C [b, S, N] and y [b, S, H, P]
 // are given by element strides (the last dimension's stride must be 1, the
@@ -75,6 +93,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -94,30 +114,10 @@ struct Tile {
   static constexpr int LDP = PP + VE;         // few bank conflicts)
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory; zeros when `valid` is false.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
+// Wait for every copy issued so far, committed or not (cp_async16 and
+// cp_async_wait<1> for all but the newest group are tf32_mma.cuh's).
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait for every committed group of copies but the newest.
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -253,26 +253,46 @@ __device__ __forceinline__ int ldb_t(int lane, int ld) {
   return ((lane & 7) + (((lane >> 3) & 1) << 3)) * ld + ((lane >> 4) << 3);
 }
 
-// The fp32 route: acc[16 x 8 NTL] += A[16 x 16] B[16 x 8 NTL] on the CUDA
-// cores, with a(r, k) and b(k, col) giving the operands and the output in
-// the mma layout above.  Its inner loop stays rolled: unrolled, it made
-// this source's build take 15.8 s, nearly three times any other's
-// (chip_smoke.py prints each), for a route only the fp32 checks take.
-template <int NTL, class FA, class FB>
-__device__ __forceinline__ void fma_step(float (&acc)[NTL][4], FA a, FB b) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t2 = 2 * (lane & 3);
+// The fp32 route's fragments of one 8-wide k-slice of m16n8k8, split into
+// TF32 hi and lo: lane = 4 g + t holds A rows g, g + 8 at k slots t and
+// t + 4, and B k slots t and t + 4 of column g.  The fp32 tiles' row
+// strides are 4 words mod 32, so reading k slots in order (slot s at k s)
+// is free of bank conflicts along a [row][k] tile, and taking k slots t,
+// t + 4 from rows 2t, 2t + 1 is along a [k][column] tile.
+//
+// A of a [row][k] tile, k slots in order; p points at (row g, k t).
+__device__ __forceinline__ void frag_rows(const float* p, int ld,
+                                          uint32_t (&ah)[4],
+                                          uint32_t (&al)[4]) {
+  split(p[0], ah[0], al[0]);
+  split(p[8 * ld], ah[1], al[1]);
+  split(p[4], ah[2], al[2]);
+  split(p[8 * ld + 4], ah[3], al[3]);
+}
+
+// B of NTL column tiles of a [column][k] tile, k slots in order; p points
+// at (column g, k t).
+template <int NTL>
+__device__ __forceinline__ void frag_cols(const float* p, int ld,
+                                          uint32_t (&bh)[NTL][2],
+                                          uint32_t (&bl)[NTL][2]) {
 #pragma unroll
-  for (int nt = 0; nt < NTL; ++nt) {
-    const int c = 8 * nt + t2;
-#pragma unroll 1
-    for (int k = 0; k < 16; ++k) {
-      const float a0 = a(g, k), a1 = a(g + 8, k);
-      const float b0 = b(k, c), b1 = b(k, c + 1);
-      acc[nt][0] = fmaf(a0, b0, acc[nt][0]);
-      acc[nt][1] = fmaf(a0, b1, acc[nt][1]);
-      acc[nt][2] = fmaf(a1, b0, acc[nt][2]);
-      acc[nt][3] = fmaf(a1, b1, acc[nt][3]);
-    }
+  for (int n = 0; n < NTL; ++n) {
+    split(p[8 * n * ld], bh[n][0], bl[n][0]);
+    split(p[8 * n * ld + 4], bh[n][1], bl[n][1]);
+  }
+}
+
+// B of NTL column tiles of a [k][column] tile, k slots t and t + 4 on rows
+// 2t and 2t + 1; p points at (row 2t, column g).
+template <int NTL>
+__device__ __forceinline__ void frag_pairs(const float* p, int ld,
+                                           uint32_t (&bh)[NTL][2],
+                                           uint32_t (&bl)[NTL][2]) {
+#pragma unroll
+  for (int n = 0; n < NTL; ++n) {
+    split(p[8 * n], bh[n][0], bl[n][0]);
+    split(p[ld + 8 * n], bh[n][1], bl[n][1]);
   }
 }
 
@@ -355,7 +375,7 @@ ssd_chunk_states(const T* __restrict__ x, const T* __restrict__ dt,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 
-  const int t2 = 2 * (lane & 3);
+  const int g = lane >> 2, t = lane & 3, t2 = 2 * t;
   for (int j0 = 0; j0 < cl; j0 += TR) {
     const int nj = min(TR, cl - j0);
     __syncthreads();  // the previous tile is consumed; cs is written
@@ -394,20 +414,25 @@ ssd_chunk_states(const T* __restrict__ x, const T* __restrict__ dt,
             mma_terms<3, 1>(acc[2 * np + 1], f, b2, b3);
           }
         } else {
-          fma_step<8>(
-              acc,
-              [&](int r, int k) {
-                return to_f32(sX[(k0 + k) * L::LDP + p0 + r]) * sW[k0 + k];
-              },
-              [&](int k, int col) {
-                return to_f32(sB[(k0 + k) * L::LDN + n0 + col]);
-              });
+#pragma unroll
+          for (int k8 = k0; k8 < k0 + 16; k8 += 8) {
+            // A[p][j] = x_j[p] w_j, k slots t, t + 4 on keys 2t, 2t + 1.
+            const int j = k8 + t2;
+            const float* xp = sX + j * L::LDP + p0 + g;
+            const float w0 = sW[j], w1 = sW[j + 1];
+            uint32_t ah[4], al[4], bh[8][2], bl[8][2];
+            split(xp[0] * w0, ah[0], al[0]);
+            split(xp[8] * w0, ah[1], al[1]);
+            split(xp[L::LDP] * w1, ah[2], al[2]);
+            split(xp[L::LDP + 8] * w1, ah[3], al[3]);
+            frag_pairs<8>(sB + j * L::LDN + n0 + g, L::LDN, bh, bl);
+            mma3<8>(acc, ah, al, bh, bl);
+          }
         }
       }
     }
   }
 
-  const int g = lane >> 2;
   float* out = states + (((long long)b * nc + c) * H + h) * P * N;
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt)
@@ -458,27 +483,33 @@ ssd_state_pass(const float2* __restrict__ cs, float* __restrict__ states,
 template <typename T>
 struct OutSmem {
   using L = Tile<T>;
+  // Key tiles stream through two stages (bf16) or one (fp32: its tiles are
+  // twice as wide, and one stage with the state tile in it leaves room for
+  // two blocks an SM).
+  static constexpr int ST = L::TC ? 2 : 1;
   static constexpr int TILE_B = TR * L::LDN * sizeof(T);   // B rows
   static constexpr int TILE_X = TR * L::LDP * sizeof(T);   // x rows
+  static constexpr int TILE_H = PP * LDH * 4;               // [PP][LDH] f32
   static constexpr int C = 0;                               // [TR][LDN] T
-  static constexpr int B = C + TILE_B;                      // 2 stages
-  static constexpr int X = B + 2 * TILE_B;                  // 2 stages
-  static constexpr int H = X + 2 * TILE_X;                  // [PP][LDH] f32
-  static constexpr int CS = H + PP * LDH * 4;               // 2 x [TR] f32x2
-  static constexpr int DT = CS + 2 * TR * 8;                // 2 x [TR] f32
-  // fp32 inputs: each warp's weighted scores go through shared memory.
-  static constexpr int SW = DT + 2 * TR * 4;                // 8 x [16][36]
-  static constexpr int BYTES = SW + (L::TC ? 0 : 8 * 16 * 36 * 4);
+  static constexpr int B = C + TILE_B;                      // ST stages
+  static constexpr int X = B + ST * TILE_B;                 // ST stages
+  // fp32: the state read runs before the key tiles, in the B stage.
+  static constexpr int H = L::TC ? X + ST * TILE_X : B;
+  static constexpr int CS = X + ST * TILE_X + (L::TC ? TILE_H : 0);
+  static constexpr int DT = CS + ST * TR * 8;               // ST x [TR] f32x2
+  static constexpr int BYTES = DT + ST * TR * 4;            // ST x [TR] f32
   // After the key tiles, the halves' sums meet in the B stages.
   static constexpr int RED = B;                             // [TR][PP+4] f32
-  static_assert(TR * (PP + 4) * 4 <= 2 * TILE_B, "room for the reduction");
+  static_assert(TR * (PP + 4) * 4 <= ST * TILE_B, "room for the reduction");
+  static_assert(L::TC || TILE_H <= TILE_B, "the state tile fits a B stage");
 };
 
 // Launch 3: one block per (64-row tile, chunk, head, batch), 8 warps.  Warp
 // w takes rows 16 (w % 4) of the tile and half w / 4 of each key tile (and
 // of N for the state read); the two halves' sums are added at the end.
-// The key tiles at or before the row tile stream through two stages: the
-// copies of the next run while this one's products do.
+// The key tiles at or before the row tile stream through two stages (bf16:
+// the copies of the next run while this one's products do) or one (fp32:
+// the other block on the SM runs while this one copies).
 template <typename T>
 __global__ void __launch_bounds__(NT_OUT, 2)   // two blocks fill an SM
 ssd_chunk_outputs(const T* __restrict__ x, const T* __restrict__ dt,
@@ -511,7 +542,7 @@ ssd_chunk_outputs(const T* __restrict__ x, const T* __restrict__ dt,
   const int c0 = c * chunk, cl = min(chunk, S - c0), i0 = rt * TR;
   if (i0 >= cl) return;  // past a short last chunk
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  const int g = lane >> 2, t = lane & 3, t2 = 2 * t;
   const int w16 = 16 * (warp & 3);          // this warp's rows of the tile
   const int half = warp >> 2;               // and its half of keys and N
   const int kh = 32 * half;                 // its first key of a tile
@@ -534,7 +565,7 @@ ssd_chunk_outputs(const T* __restrict__ x, const T* __restrict__ dt,
   };
 
   zero_columns(sC, L::LDN, TR, N, NP);
-  for (int s = 0; s < 2; ++s) {
+  for (int s = 0; s < M::ST; ++s) {
     zero_columns(sB(s), L::LDN, TR, N, NP);
     zero_columns(sX(s), L::LDP, TR, P, PP);
   }
@@ -545,7 +576,7 @@ ssd_chunk_outputs(const T* __restrict__ x, const T* __restrict__ dt,
               (long long)N, PP, P, N);
     zero_columns(sH, LDH, PP, N, NP);
   }
-  fetch(0, 0);
+  if constexpr (M::ST == 2) fetch(0, 0);
   // cs of this warp's two rows per thread: rows w16 + g and w16 + g + 8.
   const int ia = i0 + w16 + g, ib = ia + 8;
   const float2 cs_a = ia < cl ? csb[ia] : make_float2(0.f, 0.f);
@@ -579,12 +610,13 @@ ssd_chunk_outputs(const T* __restrict__ x, const T* __restrict__ dt,
           mma_terms<1, 3>(yacc[nt], f, b0, b1);
         }
       } else {
-        fma_step<8>(
-            yacc,
-            [&](int r, int k) {
-              return to_f32(sC[(w16 + r) * L::LDN + k0 + k]);
-            },
-            [&](int k, int col) { return sH[col * LDH + k0 + k]; });
+#pragma unroll
+        for (int k8 = k0; k8 < k0 + 16; k8 += 8) {
+          uint32_t ah[4], al[4], bh[8][2], bl[8][2];
+          frag_rows(sC + (w16 + g) * L::LDN + k8 + t, L::LDN, ah, al);
+          frag_cols<8>(sH + g * LDH + k8 + t, LDH, bh, bl);
+          mma3<8>(yacc, ah, al, bh, bl);
+        }
       }
     }
     const float ea = expf(cs_a.x + cs_a.y), eb = expf(cs_b.x + cs_b.y);
@@ -596,15 +628,24 @@ ssd_chunk_outputs(const T* __restrict__ x, const T* __restrict__ dt,
       yacc[nt][3] *= eb;
     }
   }
+  if constexpr (M::ST == 1) {
+    __syncthreads();  // the state tile in the stage is consumed
+    fetch(0, 0);
+  }
 
   // Intra-chunk terms from the key tiles at or before this row tile.
   for (int jt = 0; jt <= rt; ++jt) {
-    const int s = jt & 1, j0 = jt * TR;
-    if (jt < rt) {
-      fetch(jt + 1, s ^ 1);   // its stage was released at the end of jt - 1
-      cp_async_commit();
-      cp_async_wait_one();    // all but the newest group: tile jt is in
+    const int s = jt % M::ST, j0 = jt * TR;
+    if constexpr (M::ST == 2) {
+      if (jt < rt) {
+        fetch(jt + 1, s ^ 1); // its stage was released at the end of jt - 1
+        cp_async_commit();
+        cp_async_wait<1>();   // all but the newest group: tile jt is in
+      } else {
+        cp_async_wait_all();
+      }
     } else {
+      if (jt > 0) fetch(jt, 0);  // the stage was released at the end of jt - 1
       cp_async_wait_all();
     }
     __syncthreads();
@@ -636,14 +677,13 @@ ssd_chunk_outputs(const T* __restrict__ x, const T* __restrict__ dt,
           mma_terms<1, 1>(sacc[2 * np + 1], f, b2, b3);
         }
       } else {
-        fma_step<4>(
-            sacc,
-            [&](int r, int k) {
-              return to_f32(sC[(w16 + r) * L::LDN + k0 + k]);
-            },
-            [&](int k, int col) {
-              return to_f32(tB[(kh + col) * L::LDN + k0 + k]);
-            });
+#pragma unroll
+        for (int k8 = k0; k8 < k0 + 16; k8 += 8) {
+          uint32_t ah[4], al[4], bh[4][2], bl[4][2];
+          frag_rows(sC + (w16 + g) * L::LDN + k8 + t, L::LDN, ah, al);
+          frag_cols<4>(tB + (kh + g) * L::LDN + k8 + t, L::LDN, bh, bl);
+          mma3<4>(sacc, ah, al, bh, bl);
+        }
       }
     }
     // Weighted by exp(cs_i - cs_j) dt_j where j <= i, exactly 0 elsewhere.
@@ -682,24 +722,17 @@ ssd_chunk_outputs(const T* __restrict__ x, const T* __restrict__ dt,
         }
       }
     } else {
-      float* sw = reinterpret_cast<float*>(smem + M::SW) + warp * 16 * 36;
+      // Key tile nt of the scores is the A fragment of keys kh + 8 nt + ..
+      // with k slots t, t + 4 on the columns 2t, 2t + 1 this lane holds.
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          sw[(g + (e >= 2 ? 8 : 0)) * 36 + 8 * nt + t2 + (e & 1)] =
-              sacc[nt][e];
-      __syncwarp();
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk)
-        fma_step<8>(
-            yacc, [&](int r, int k) { return sw[r * 36 + 16 * kk + k]; },
-            [&](int k, int col) {
-              return to_f32(tX[(kh + 16 * kk + k) * L::LDP + col]);
-            });
-      __syncwarp();
+      for (int nt = 0; nt < 4; ++nt) {
+        uint32_t ah[4], al[4], bh[8][2], bl[8][2];
+        frag_acc(sacc[nt], ah, al);
+        frag_pairs<8>(tX + (kh + 8 * nt + t2) * L::LDP + g, L::LDP, bh, bl);
+        mma3<8>(yacc, ah, al, bh, bl);
+      }
     }
-    __syncthreads();  // stage s is released for tile jt + 2
+    __syncthreads();  // stage s is released for tile jt + ST
   }
 
   // The second half's sums meet the first's in shared memory (the B

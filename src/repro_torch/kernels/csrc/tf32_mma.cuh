@@ -2,8 +2,10 @@
 // (flash_attention.cu, flash_attention_bwd.cu): shared-memory tiles filled
 // by cp.async and split once into TF32 hi and lo, the lanes' fragment
 // addressing, and the m16n8k8 TF32 products run as lo.hi + hi.lo + hi.hi.
-// Both kernels run blocks of NT threads.  Each kernel's source includes it
-// once, outside its own anonymous namespace.
+// Both kernels run blocks of NT threads.  K3's fp32 route (ssd_scan.cu)
+// takes its copies, splits and products, with fragment reads of its own
+// padded tiles.  Each kernel's source includes it once, outside its own
+// anonymous namespace.
 
 #pragma once
 

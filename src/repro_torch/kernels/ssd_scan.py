@@ -11,8 +11,9 @@ autograd differentiates); CUDA tensors launch the kernel or raise.
 The kernel is chunk-parallel: the chunk states, the recurrence over
 chunks and the chunk outputs are three launches of one call
 (:func:`launch_shape` gives their grids), with the products on the
-tensor cores for bf16 inputs (fp32 operands split into bf16 hi and lo)
-and on the CUDA cores for fp32 ones.
+tensor cores: ``mma.sync`` m16n8k16 for bf16 inputs (fp32 operands in
+three bf16 terms), m16n8k8 with TF32 operands for fp32 ones (every product
+as lo.hi + hi.lo + hi.hi, "3xTF32").
 
 Where an input requires grad under grad mode the call goes through
 ``_SsdScanFn``: its forward is the same kernel, keeping the forward's

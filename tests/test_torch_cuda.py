@@ -41,6 +41,7 @@ from repro_torch.kernels.cases import (  # noqa: E402
     SSD_CASES,
     SSD_CORNER_CASES,
     SSD_FAMILY_MAIN_CASES,
+    SSD_FP32_MAIN_CASES,
     SSD_MAIN_CASE,
     SSD_MAIN_RMS_LIMIT,
     SSD_MAIN_TOLERANCE,
@@ -348,6 +349,24 @@ def test_ssd_kernel_matches_plain_version_at_family_shapes(card, case, slow):
     ins = _ssd_inputs(b, S, H, P, N, dtype, seed=11, slow=slow)
     y, state = ops.ssd_scan(*ins, chunk=chunk, impl="cuda")
     y_ref, s_ref = ssd_scan_ref(*ins)
+    _assert_close_by_rms(y, y_ref, SSD_MAIN_TOLERANCE, SSD_MAIN_RMS_LIMIT)
+    assert max_ratio(state, s_ref) < ssd_limit("float32")
+    assert _rms(state - s_ref) <= SSD_STATE_RMS_LIMIT * _rms(s_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_FP32_MAIN_CASES, ids=ssd_case_id)
+@pytest.mark.parametrize("slow", [False, True], ids=["jax_dt", "slow_decay"])
+def test_ssd_fp32_route_matches_plain_version_at_training_shapes(card, case,
+                                                                 slow):
+    """The fp32 route (3xTF32) where the train step runs it: y at the fp32
+    JAX limit and at the main limits, the state at the fp32 limit and by
+    rms."""
+    b, S, H, P, N, chunk, dtype = case
+    ins = _ssd_inputs(b, S, H, P, N, dtype, seed=13, slow=slow)
+    y, state = ops.ssd_scan(*ins, chunk=chunk, impl="cuda")
+    y_ref, s_ref = ssd_scan_ref(*ins)
+    assert max_ratio(y, y_ref) < ssd_limit(dtype)
     _assert_close_by_rms(y, y_ref, SSD_MAIN_TOLERANCE, SSD_MAIN_RMS_LIMIT)
     assert max_ratio(state, s_ref) < ssd_limit("float32")
     assert _rms(state - s_ref) <= SSD_STATE_RMS_LIMIT * _rms(s_ref)

@@ -566,17 +566,32 @@ def _bf16_terms(t: torch.Tensor, terms: int) -> torch.Tensor:
     return out
 
 
-def _ssd_tensor_core_emulation(x, dt, A, B, C, chunk: int, terms: int = 3):
+def _ssd_tensor_core_emulation(x, dt, A, B, C, chunk: int, terms: int = 3,
+                               tf32: bool = False):
     """The chunk-parallel kernel's order and rounding on the CPU: per chunk
     the cumulative dA (summed in fp64, kept as an fp32 hi + lo pair), the
-    chunk's own state, the recurrence over chunks in fp32, and the outputs
-    (C . B^T exact in fp32; the decay-weighted scores, exp(cs_last - cs_j)
-    dt_j x_j and the entering state h, the fp32 operands of the
-    tensor-core products, as ``terms`` bf16 terms; the kernel uses 3).
+    chunk's own state, the recurrence over chunks in fp32, and the outputs.
+    bf16 route: C . B^T exact in fp32; the decay-weighted scores,
+    exp(cs_last - cs_j) dt_j x_j and the entering state h, the fp32
+    operands of its products, as ``terms`` bf16 terms (the kernel uses 3).
+    fp32 route (``tf32``): every product over k-slices of 8 in order, in
+    ``terms`` TF32 products each (``_split_matmul``; the kernel uses 3).
     Returns (y in x's dtype, the fp32 final state)."""
     b, S, H, P = x.shape
     xf, dtf, Af, Bf, Cf = (t.float() for t in (x, dt, A, B, C))
     h = torch.zeros((b, H, P, B.shape[-1]))
+
+    def mm(a, m, fp32_operand: str):
+        """a @ m; on the bf16 route the operand named (a or m) in bf16
+        terms."""
+        if tf32:
+            return _split_matmul(a, m, terms)
+        if fp32_operand == "a":
+            a = _bf16_terms(a, terms)
+        elif fp32_operand == "m":
+            m = _bf16_terms(m, terms)
+        return a @ m
+
     ys = []
     for c0 in range(0, S, chunk):
         sl = slice(c0, min(c0 + chunk, S))
@@ -586,22 +601,20 @@ def _ssd_tensor_core_emulation(x, dt, A, B, C, chunk: int, terms: int = 3):
         hi = cs.float()                                      # kept as
         lo = (cs - hi.double()).float()                      # hi + lo
         w = torch.exp((hi[:, -1:] - hi) + (lo[:, -1:] - lo)) * d
-        own = torch.einsum("bjhp,bjn->bhpn",
-                           _bf16_terms(xf[:, sl] * w[..., None], terms),
-                           Bf[:, sl])
-        scores = torch.einsum("bin,bjn->bij", Cf[:, sl], Bf[:, sl])
+        xc = xf[:, sl].permute(0, 2, 1, 3)                   # [b, H, cl, P]
+        own = mm((xc * w.transpose(1, 2)[..., None]).transpose(-1, -2),
+                 Bf[:, sl, None].transpose(1, 2), "a")       # [b, H, P, N]
+        scores = mm(Cf[:, sl], Bf[:, sl].transpose(-1, -2), "")
         live = torch.tril(torch.ones((cl, cl), dtype=torch.bool))
-        weighted = torch.where(
-            live[None, :, :, None],
-            scores[..., None] * (torch.exp((hi[:, :, None] - hi[:, None])
-                                           + (lo[:, :, None] - lo[:, None]))
-                                 * d[:, None]), torch.zeros(()))
-        y = torch.einsum("bijh,bjhp->bihp", _bf16_terms(weighted, terms),
-                         xf[:, sl])
-        y = y + torch.exp(hi + lo)[..., None] * torch.einsum(
-            "bin,bhpn->bihp", Cf[:, sl], _bf16_terms(h, terms))
+        decay = torch.exp((hi[:, :, None] - hi[:, None])
+                          + (lo[:, :, None] - lo[:, None])) * d[:, None]
+        weighted = torch.where(live[None, :, :, None],
+                               scores[..., None] * decay, torch.zeros(()))
+        y = mm(weighted.permute(0, 3, 1, 2), xc, "a")         # [b, H, cl, P]
+        y = y + torch.exp(hi + lo).transpose(1, 2)[..., None] * mm(
+            Cf[:, None, sl], h.transpose(-1, -2), "m")
         h = torch.exp(hi[:, -1] + lo[:, -1])[..., None, None] * h + own
-        ys.append(y)
+        ys.append(y.transpose(1, 2))
     return torch.cat(ys, dim=1).to(x.dtype), h
 
 
@@ -672,6 +685,60 @@ def test_ssd_tensor_core_emulation_matches_jax(case):
             *(jnp.asarray(t.float().numpy()) for t in tin), chunk=chunk)
         assert max_ratio(y.float().numpy(), y_model) < ssd_limit(dtype)
         assert max_ratio(state.numpy(), s_model) < ssd_limit("float32")
+
+
+# K3's fp32 route (3xTF32 on mma.sync m16n8k8): every fp32 case, and the
+# training shape (the train CLI's 8 x 256 tokens at mamba2-370m's widths,
+# one chunk) at a reduced H.
+# Which TF32 product counts keep the fp32 route within the fp32 limit on
+# every case: three (worst max_ratio 3.8e-6 on the CPU); two (the second
+# operand rounded to TF32 once) read 2.3e-4 to 5.3e-4 and one 3.2e-4 to
+# 7.1e-4, against 1e-4.
+TF32_TERMS_PASS = {3: True, 2: False, 1: False}
+SSD_TF32_CASES = ([c for c in SSD_CASES + SSD_RAGGED_CASES + SSD_CORNER_CASES
+                   if c[6] == "float32"]
+                  + [SSD_BACKWARD_TRAIN_CASE[:2] + (2,)
+                     + SSD_BACKWARD_TRAIN_CASE[3:]])
+
+
+@functools.lru_cache(maxsize=None)
+def _ssd_jax_refs(case) -> tuple:
+    """The JAX oracle's y and, where S divides into chunks, the JAX model's
+    ``ssd_chunked`` (y, final state) on ``_ssd_case(case, 1)``'s inputs."""
+    b, S, H, P, N, chunk, dtype = case
+    jin, tin, raw, _ = _ssd_case(case, 1)
+    oracle = jax_ref.ssd_scan_ref(jin[0], jin[1], jnp.asarray(raw[2]),
+                                  *jin[3:])
+    model = (jax_mamba.ssd_chunked(*(jnp.asarray(t.float().numpy())
+                                     for t in tin), chunk=chunk)
+             if S % chunk == 0 else None)
+    return oracle, model
+
+
+@pytest.mark.parametrize("terms", [3, 2, 1],
+                         ids=["3xtf32", "two_terms", "tf32"])
+@pytest.mark.parametrize("case", SSD_TF32_CASES, ids=ssd_case_id)
+def test_ssd_tf32_emulation_matches_jax(case, terms):
+    """The fp32 route's order and rounding (every product over k-slices of
+    8, each as lo.hi + hi.lo + hi.hi) against the JAX oracle and, where S
+    divides into chunks, the JAX model's ``ssd_chunked`` (y and the final
+    state) at the fp32 limit.  One TF32 product (hi.hi) and two (lo.hi +
+    hi.hi) are read beside it: TF32_TERMS_PASS says which pass, and the
+    test holds that.  ``pytest -s`` prints the readings."""
+    chunk = case[5]
+    _, tin, _, _ = _ssd_case(case, 1)
+    oracle, model = _ssd_jax_refs(case)
+    y, state = _ssd_tensor_core_emulation(*tin, chunk, terms, tf32=True)
+    ratios = {"oracle y": max_ratio(y.numpy(), oracle)}
+    if model is not None:
+        ratios["ssd_chunked y"] = max_ratio(y.numpy(), model[0])
+        ratios["ssd_chunked state"] = max_ratio(state.numpy(), model[1])
+    limit = ssd_limit("float32")
+    passes = max(ratios.values()) < limit
+    print(f"K3 fp32 route, {terms} TF32 product(s), {ssd_case_id(case)}: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in ratios.items())
+          + f" (limit {limit}): {'passes' if passes else 'fails'}")
+    assert passes == TF32_TERMS_PASS[terms], ratios
 
 
 # The MoE and embedding-input families' shapes, as each model's attention
@@ -830,15 +897,16 @@ def _tf32(x: torch.Tensor) -> torch.Tensor:
 def _split_matmul(a: torch.Tensor, b: torch.Tensor, terms: int,
                   acc=None) -> torch.Tensor:
     """``acc + a @ b`` as the kernels take it: k-slices of 8 in order, each
-    the sum of lo.hi, hi.lo and hi.hi (``terms`` 3) or of hi.hi alone
-    (``terms`` 1), added into an fp32 accumulator."""
-    out = (torch.zeros(a.shape[:-1] + b.shape[-1:]) if acc is None
-           else acc)
+    the sum of lo.hi, hi.lo and hi.hi (``terms`` 3), of lo.hi and hi.hi
+    (``terms`` 2: b rounded to TF32 once) or of hi.hi alone (``terms`` 1),
+    added into an fp32 accumulator."""
+    out = torch.zeros(()) if acc is None else acc
     for k0 in range(0, a.shape[-1], 8):
         x, y = a[..., k0:k0 + 8], b[..., k0:k0 + 8, :]
         xh, yh = _tf32(x), _tf32(y)
-        if terms == 3:
+        if terms >= 2:
             out = out + _tf32(x - xh) @ yh
+        if terms == 3:
             out = out + xh @ _tf32(y - yh)
         out = out + xh @ yh
     return out
