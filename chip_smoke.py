@@ -17,13 +17,17 @@ time.
    dynamic shared memory of K1's kernels (both instantiations of the bf16
    forward), of its backwards' launches, of K3's three launches (with
    their grids at mamba2-370m's shape in bf16 and at its training shape
-   in fp32) and of K3's five backward launches (with their grids at
-   mamba2-370m's training shape); the TF32 tensor-core instructions
-   (``HMMA.1688.F32.TF32`` in ``cuobjdump -sass``) of each fp32 kernel, K3's
-   fp32 launches among them (beside their ``FFMA`` count), and the wgmma
-   ones (``HGMMA``) of the bf16 backward's tile kernels, which must not be
-   0, with those kernels' threads, registers and dynamic shared memory;
-   ptxas must report no spill in them nor in K3's forward.
+   in fp32) and of K3's five backward launches in both dtypes (with their
+   grids at mamba2-370m's training shape, and the blocks an SM of its
+   chunk-term and tile launches from
+   ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); the TF32
+   tensor-core instructions (``HMMA.1688.F32.TF32`` in ``cuobjdump
+   -sass``) of each fp32 kernel, K3's fp32 launches and both of K3's
+   backward tile launches among them (beside their ``FFMA`` count), and
+   the wgmma ones (``HGMMA``) of the bf16 backward's tile kernels, which
+   must not be 0, with those kernels' threads, registers and dynamic
+   shared memory; ptxas must report no spill in them nor in K3's forward
+   or backward.
 3. K1 (flash attention) against its plain version on the card, at the
    shapes and tolerances of ``repro_torch.kernels.cases``: the JAX
    package's FLASH_CASES shapes in fp32 (tolerance 2e-5; the fp32 kernel,
@@ -293,8 +297,9 @@ time.
       counting exactly 2 x 48 x 30 forward and 48 x 30 backward launches;
       the median step time, tokens/s, TFLOP/s from ``launch/analytic.py``,
       the busy share, K3's forward and backward shares (and each backward
-      launch's), the five kernels with the most device time and the peak
-      memory.
+      launch's; the backward's device time a step beside the 63.9 ms its
+      first design, fp32 FMA on the CUDA cores, took there), the five
+      kernels with the most device time and the peak memory.
 14. the total time, the card line again, one ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -607,6 +612,10 @@ MAMBA_TRAIN_ARCH = "mamba2-370m"
 K3_FWD_KERNELS = ("ssd_chunk_states", "ssd_state_pass", "ssd_chunk_outputs")
 K3_BWD_KERNELS = ("ssd_bwd_chunk_dstates", "ssd_bwd_state_pass",
                   "ssd_bwd_tiles", "ssd_bwd_chunk_finish", "ssd_bwd_sums")
+# 13f's K3 backward device time a step (ms) when the backward's products
+# ran as fp32 FMA on the CUDA cores (its first design; chip_smoke.py on an
+# NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's.
+K3_BWD_STEP_MS_CUDA_CORES = 63.9
 
 
 def log(msg: str) -> None:
@@ -4216,7 +4225,9 @@ def phase_train_mamba() -> dict:
     log(f"  one profiled step: {1e3 * wall:.2f} ms on the host clock, the "
         f"card busy {total:.2f} ms ({100 * busy:.1f}%); K3 forward "
         f"{fwd:.2f} ms ({100 * fwd / total:.1f}% of busy), K3 backward "
-        f"{bwd:.2f} ms ({100 * bwd / total:.1f}%); by launch (ms, launches "
+        f"{bwd:.2f} ms ({100 * bwd / total:.1f}%; "
+        f"{K3_BWD_STEP_MS_CUDA_CORES} ms with its products on the CUDA "
+        f"cores); by launch (ms, launches "
         f"recorded): " + ", ".join(f"{k} {t:.2f} x{n}"
                                    for k, (t, n) in k3.items() if n)
         + f"; matrix products {gemm:.2f} ms ({100 * gemm / total:.1f}%); "
@@ -4411,18 +4422,44 @@ def main() -> None:
         if len(routes) != 2 or min(routes) == 0:
             raise AssertionError(f"ssd_scan: an fp32 launch has no TF32 "
                                  f"tensor-core instruction: {tf32}")
-        b, S, H, P, N, chunk, _ = SSD_BACKWARD_TRAIN_CASE
-        shapes = k3_lib.backward_launch_shape(b, S, H, P, N, chunk)
-        long_shapes = k3_lib.backward_launch_shape(*SSD_BACKWARD_TIMED[1])
+        # K3's backward: each launch in both dtypes at the training shape
+        # (the chunk-term launch at S 1024, where it runs), the blocks an SM
+        # of the two that hold tiles; the tile launches' products are TF32
+        # mma.sync, and ptxas keeps every register in place.
+        spilled = []
         for name, line in ptxas_lines(logs["ssd_scan_bwd"] or ""):
             launch = next(k for k in K3_BWD_KERNELS if k in name)
-            if "bfloat16" in name:
-                continue                 # as the fp32 instantiation
+            dtype = torch.bfloat16 if "bfloat16" in name else torch.float32
+            shapes = k3_lib.backward_launch_shape(
+                *SSD_BACKWARD_TRAIN_CASE[:6], dtype)
+            long_shapes = k3_lib.backward_launch_shape(
+                *SSD_BACKWARD_TIMED[1], dtype)
             grid, threads, smem_bytes = {**long_shapes, **shapes}[launch]
-            log(f"  K3 backward {launch} at {SSD_BACKWARD_TRAIN_CASE[:6]}"
+            per_sm = k3_lib.backward_blocks_per_sm(dtype).get(launch)
+            log(f"  K3 backward {launch}"
+                + ("" if launch == "ssd_bwd_state_pass" else
+                   f" ({str(dtype)[6:]})")
+                + f" at {SSD_BACKWARD_TRAIN_CASE[:6]}"
                 + (" (S 1024)" if launch not in shapes else "")
                 + f": grid {grid} = {int(np.prod(grid))} blocks of {threads}"
-                f" threads, {line}, {smem_bytes} B dynamic shared memory")
+                f" threads, {line}, {smem_bytes} B dynamic shared memory"
+                + ("" if per_sm is None else f", {per_sm} blocks an SM"))
+            if "0 B spill stores, 0 B spill loads" not in line:
+                spilled.append((name, line))
+        if spilled:
+            raise AssertionError(f"ssd_scan_bwd: ptxas spilled: {spilled}")
+        tf32 = hmma_counts("ssd_scan_bwd", "HMMA.1688.F32.TF32")
+        ffma = hmma_counts("ssd_scan_bwd", "FFMA")
+        for fn, n in tf32.items():
+            launch = next(k for k in K3_BWD_KERNELS if k in fn)
+            log(f"  ssd_scan_bwd.cu {launch}"
+                + ("<__nv_bfloat16>" if "bfloat16" in fn else
+                   "<float>" if "IfE" in fn else "")
+                + f": {n} HMMA.1688.F32.TF32, {ffma[fn]} FFMA")
+        tiles = [n for fn, n in tf32.items() if "ssd_bwd_tiles" in fn]
+        if len(tiles) != 2 or min(tiles) == 0:
+            raise AssertionError(f"ssd_scan_bwd: a tile launch has no TF32 "
+                                 f"tensor-core instruction: {tf32}")
         for name, line in ptxas_lines(logs["decode_attention"] or ""):
             if "bfloat16" in name:
                 log(f"  K2 decode_fwd (bf16): {line}")

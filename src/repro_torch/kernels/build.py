@@ -89,15 +89,20 @@ def build_kernels(names: Sequence[str]
         return {name: f.result() for name, f in futures.items()}
 
 
-def check_copy_strides(what: str, *tensors) -> None:
-    """The kernels copy 16-byte pieces of rows (TMA, ``cp.async``): each
-    tensor's base must be 16-byte aligned and every stride but the
+def copy_aligned(t) -> bool:
+    """Whether the kernels can copy 16-byte pieces of ``t``'s rows (TMA,
+    ``cp.async``): its base 16-byte aligned and every stride but the
     innermost (of a dimension longer than 1) a multiple of 16 bytes."""
+    per16 = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and not any(
+        t.stride(i) % per16 for i in range(t.dim() - 1) if t.shape[i] > 1)
+
+
+def check_copy_strides(what: str, *tensors) -> None:
+    """Raise unless :func:`copy_aligned` holds for each tensor."""
     for t in tensors:
         per16 = 16 // t.element_size()
-        if t.data_ptr() % 16 or any(t.stride(i) % per16
-                                    for i in range(t.dim() - 1)
-                                    if t.shape[i] > 1):
+        if not copy_aligned(t):
             raise ValueError(f"{what} needs 16-byte aligned tensors with "
                              f"strides that are multiples of {per16} "
                              f"elements; got strides {t.stride()}")

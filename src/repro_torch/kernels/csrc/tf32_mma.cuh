@@ -236,4 +236,30 @@ __device__ __forceinline__ void frag_acc(const float (&x)[4], uint32_t (&ah)[4],
   split(x[3], ah[3], al[3]);
 }
 
+// The same split with ties rounded to even: cvt.rn.tf32.f32 is one
+// instruction on sm_90 (F2FP), where cvt.rna takes four (a finiteness
+// test, an add, a select and a mask), so a split costs three instructions
+// where split's takes up to nine.  hi + lo carries x to about 22 bits as
+// before.  K3's backward (ssd_scan_bwd.cu) splits with these.
+__device__ __forceinline__ uint32_t tf32_rn(float x) {
+  uint32_t r;
+  asm("cvt.rn.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split_rn(float x, uint32_t& hi,
+                                         uint32_t& lo) {
+  hi = tf32_rn(x);
+  lo = tf32_rn(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void frag_acc_rn(const float (&x)[4],
+                                            uint32_t (&ah)[4],
+                                            uint32_t (&al)[4]) {
+  split_rn(x[0], ah[0], al[0]);
+  split_rn(x[2], ah[1], al[1]);
+  split_rn(x[1], ah[2], al[2]);
+  split_rn(x[3], ah[3], al[3]);
+}
+
 }  // namespace

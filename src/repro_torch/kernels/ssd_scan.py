@@ -18,11 +18,12 @@ as lo.hi + hi.lo + hi.hi, "3xTF32").
 Where an input requires grad under grad mode the call goes through
 ``_SsdScanFn``: its forward is the same kernel, keeping the forward's
 scratch (the cumulative dA and the state entering each chunk), and its
-backward the hand-written backward kernel (five launches, fp32 on the
-CUDA cores for both dtypes, :func:`backward_launch_shape`), counted once a
-call in ``ssd_scan.backward_launches``.  The JAX package's Pallas kernel
-has no backward: JAX differentiates its jnp ``ssd_chunked``, and this is
-that gradient.
+backward the hand-written backward kernel (five launches,
+:func:`backward_launch_shape`; its products on the tensor cores, m16n8k8
+with TF32 operands for both dtypes, 3xTF32 where both operands are fp32),
+counted once a call in ``ssd_scan.backward_launches``.  The JAX package's
+Pallas kernel has no backward: JAX differentiates its jnp
+``ssd_chunked``, and this is that gradient.
 
 Unlike the Pallas kernel it returns the final state ``[b, H, P, N]`` in
 fp32 beside y (the model's prefill keeps it), takes any ``S`` and chunk
@@ -84,8 +85,10 @@ def _bwd_library() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.odin_ssd_scan_bwd_smem_bytes.argtypes = [ctypes.c_int]
-        lib.odin_ssd_scan_bwd_smem_bytes.restype = ctypes.c_int
+        for query in (lib.odin_ssd_scan_bwd_smem_bytes,
+                      lib.odin_ssd_scan_bwd_blocks_per_sm):
+            query.argtypes = [ctypes.c_int] * 2
+            query.restype = ctypes.c_int
         lib.odin_cuda_error_string.argtypes = [ctypes.c_int]
         lib.odin_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -105,22 +108,40 @@ def launch_shape(b: int, S: int, H: int, P: int, N: int, chunk: int,
 
 
 def backward_launch_shape(b: int, S: int, H: int, P: int, N: int,
-                          chunk: int) -> dict:
-    """The five launches of one backward call (the same for both dtypes):
-    name -> (grid, threads per block, dynamic shared memory in bytes).
-    The first is skipped when the sequence is one chunk."""
+                          chunk: int, dtype: torch.dtype = torch.float32
+                          ) -> dict:
+    """The five launches of one backward call: name -> (grid, threads per
+    block, dynamic shared memory in bytes).  The first is skipped when the
+    sequence is one chunk; the tile launch runs three blocks (du, dB, row)
+    per (64-position tile, chunk, head, batch)."""
     chunk = min(chunk, S)
     nc, tiles = math.ceil(S / chunk), math.ceil(chunk / TILE)
-    smem = _bwd_library().odin_ssd_scan_bwd_smem_bytes
+    lib = _bwd_library()
+
+    def smem(which: int) -> int:
+        return lib.odin_ssd_scan_bwd_smem_bytes(which, _DTYPES[dtype])
+
     shapes = {"ssd_bwd_chunk_dstates": ((nc - 1, H, b), 256, smem(0)),
               "ssd_bwd_state_pass": ((math.ceil(P * N / 256), H, b), 256, 0),
-              "ssd_bwd_tiles": ((2 * tiles * nc, H, b), 256, smem(2)),
+              "ssd_bwd_tiles": ((3 * tiles * nc, H, b), 256, smem(2)),
               "ssd_bwd_chunk_finish": ((nc, H, b), 256, 0),
               "ssd_bwd_sums": ((math.ceil(max(b * S * N, H) / 256),), 256,
                                0)}
     if nc == 1:
         del shapes["ssd_bwd_chunk_dstates"]
     return shapes
+
+
+def backward_blocks_per_sm(dtype: torch.dtype) -> dict:
+    """Blocks of the backward's launch 1 and tile launch that fit one SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), by launch name."""
+    lib = _bwd_library()
+    out = {}
+    for which, name in ((0, "ssd_bwd_chunk_dstates"), (2, "ssd_bwd_tiles")):
+        n = lib.odin_ssd_scan_bwd_blocks_per_sm(which, _DTYPES[dtype])
+        _raise_on(lib, max(-n, 0), "occupancy query of the backward")
+        out[name] = n
+    return out
 
 
 def _check_inputs(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -192,8 +213,9 @@ def backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     final state (fp32; None counts as zero, as does a None ``dy``): one
     call of ``csrc/ssd_scan_bwd.cu`` (five launches, four when S is one
     chunk), counted in ``ssd_scan.backward_launches``.  Each gradient is
-    contiguous, in its input's dtype.  A ``dy`` whose last stride is not 1
-    (an expanded gradient) is copied once."""
+    contiguous, in its input's dtype.  A ``dy`` that ``cp.async`` cannot
+    copy as it lies (a last stride that is not 1, as an expanded gradient
+    has, or rows that are not 16-byte aligned) is copied once."""
     _check_shapes(x, dt, A, B, C, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"the backward kernel takes CUDA tensors; got "
@@ -209,8 +231,8 @@ def backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != dev:
         raise ValueError(f"dy must be like x {tuple(x.shape)} {x.dtype}; got "
                          f"{tuple(dy.shape)} {dy.dtype} on {dy.device}")
-    if dy.stride(-1) != 1:
-        dy = dy.contiguous()
+    if dy.stride(-1) != 1 or not build.copy_aligned(dy):
+        dy = dy.clone(memory_format=torch.contiguous_format)
     if dstate is not None:
         if (tuple(dstate.shape) != (b, H, P, N)
                 or dstate.dtype != torch.float32 or dstate.device != dev):
@@ -225,7 +247,10 @@ def backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          "fp32 scratch for this shape and chunk")
     f32 = dict(dtype=torch.float32, device=dev)
     g = torch.empty((b, nc, H, P, N), **f32)
-    part = torch.empty((b, H, S, 4), dtype=torch.float64, device=dev)
+    # Per position: r, the column sum of s and w, w, x . du, then the rows'
+    # partial sums of s over each key tile.
+    part = torch.empty((b, H, S, 4 + math.ceil(chunk / TILE)),
+                       dtype=torch.float64, device=dev)
     dBh = torch.empty((b, H, S, N), **f32)
     dCh = torch.empty((b, H, S, N), **f32)
     da_part = torch.empty((b, nc, H), dtype=torch.float64, device=dev)

@@ -977,6 +977,48 @@ def test_ssd_backward_kernel_matches_plain_version(card, case, slow):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [SSD_BACKWARD_TRAIN_CASE[:6],
+                                   SSD_MAIN_CASE[:6]],
+                         ids=["train", "four_chunks"])
+def test_ssd_backward_da_on_slow_decay_at_chunk_256(card, shape, dtype):
+    """dA, the gradient most exposed to the cancellation in dcs (each pair's
+    s enters two positions with opposite signs, and da sums dcs over the
+    chunk), on the slow-decay draw (decays near 1, so no term is damped)
+    at mamba2-370m's chunk of 256 (four 64-key tiles, so each row's sum of
+    s adds four tiles' partials): the training shape and four chunks of
+    1024 tokens, within cases.py's limits, two calls bit-equal."""
+    case = tuple(shape) + (dtype,)
+    ins, dy, dstate = _ssd_bwd_inputs(case, seed=41, slow=True)
+    _, _, cs, states = k3_lib.forward_for_backward(*ins, chunk=shape[5])
+    got = k3_lib.backward(*ins, cs, states, dy, dstate, chunk=shape[5])[2]
+    again = k3_lib.backward(*ins, cs, states, dy, dstate, chunk=shape[5])[2]
+    want = ssd_scan_bwd_ref(*ins, dy, dstate)[2]
+    assert ssd_backward_check(got, want, dtype)[2], ssd_backward_check(
+        got, want, dtype)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_backward_takes_dy_that_cp_async_cannot_copy(card, dtype):
+    """A dy whose base and row stride are not 16-byte aligned (a view one
+    element into a wider tensor) gives the bits of its contiguous copy."""
+    case = (2, 300, 4, 64, 32, 128, dtype)
+    ins, dy, dstate = _ssd_bwd_inputs(case, seed=43, slow=True)
+    wide = torch.zeros(dy.shape[:-1] + (dy.shape[-1] + 1,), dtype=dy.dtype,
+                       device=dy.device)
+    wide[..., 1:] = dy
+    view = wide[..., 1:]
+    assert view.stride(-1) == 1 and view.data_ptr() % 16
+    _, _, cs, states = k3_lib.forward_for_backward(*ins, chunk=case[5])
+    got = k3_lib.backward(*ins, cs, states, view, dstate, chunk=case[5])
+    want = k3_lib.backward(*ins, cs, states, dy, dstate, chunk=case[5])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_wrapper_gradient_comes_from_the_backward_kernel(card, dtype):
     """Inputs that require grad in the model's layout (x, B and C views
     into one conv output): ssd_scan's outputs have a grad_fn, one forward

@@ -894,20 +894,27 @@ def _tf32(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
+def _tf32_rn(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32 with ties to even (cvt.rn.tf32.f32)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0xFFF + ((bits >> 13) & 1)) & -0x2000).view(torch.float32)
+
+
 def _split_matmul(a: torch.Tensor, b: torch.Tensor, terms: int,
-                  acc=None) -> torch.Tensor:
+                  acc=None, rnd=_tf32) -> torch.Tensor:
     """``acc + a @ b`` as the kernels take it: k-slices of 8 in order, each
     the sum of lo.hi, hi.lo and hi.hi (``terms`` 3), of lo.hi and hi.hi
     (``terms`` 2: b rounded to TF32 once) or of hi.hi alone (``terms`` 1),
-    added into an fp32 accumulator."""
+    added into an fp32 accumulator; ``rnd`` rounds to TF32 (ties away from
+    zero, or ``_tf32_rn``'s to even)."""
     out = torch.zeros(()) if acc is None else acc
     for k0 in range(0, a.shape[-1], 8):
         x, y = a[..., k0:k0 + 8], b[..., k0:k0 + 8, :]
-        xh, yh = _tf32(x), _tf32(y)
+        xh, yh = rnd(x), rnd(y)
         if terms >= 2:
-            out = out + _tf32(x - xh) @ yh
+            out = out + rnd(x - xh) @ yh
         if terms == 3:
-            out = out + xh @ _tf32(y - yh)
+            out = out + xh @ rnd(y - yh)
         out = out + xh @ yh
     return out
 
@@ -992,6 +999,23 @@ def test_tf32_rounding_model():
     lo = _tf32(r - hi)
     assert float(((hi - r).abs() / r.abs()).max()) <= 2.0 ** -11
     assert float(((hi + lo - r).abs() / r.abs()).max()) <= 2.0 ** -21
+
+
+def test_tf32_rn_rounding_model():
+    """_tf32_rn keeps 10 explicit mantissa bits and rounds ties to even,
+    where _tf32 rounds them away from zero; elsewhere the two agree."""
+    tie = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11,
+                        -(1.0 + 2.0 ** -11)])
+    assert _tf32_rn(tie).tolist() == [1.0, 1.0 + 2 * 2.0 ** -10, -1.0]
+    assert _tf32(tie).tolist() == [1.0 + 2.0 ** -10, 1.0 + 2 * 2.0 ** -10,
+                                   -(1.0 + 2.0 ** -10)]
+    r = torch.from_numpy(np.random.default_rng(21).standard_normal(
+        4096).astype(np.float32))
+    off_tie = (r.view(torch.int32) & 0x1FFF) != 0x1000
+    assert torch.equal(_tf32_rn(r)[off_tie], _tf32(r)[off_tie])
+    hi = _tf32_rn(r)
+    assert float(((hi + _tf32_rn(r - hi) - r).abs() / r.abs()).max()) <= (
+        2.0 ** -21)
 
 
 @pytest.mark.parametrize("terms", [3, 1], ids=["3xtf32", "tf32"])
@@ -1264,13 +1288,20 @@ def _jax_ssd_vjp(case: tuple, draw: str) -> tuple:
 
 
 def _ssd_bwd_launch_model(x, dt, A, B, C, dy, dstate, chunk: int,
-                          drop: str = None) -> tuple:
+                          drop: str = None, terms: int = 3) -> tuple:
     """The formulas of csrc/ssd_scan_bwd.cu's five launches, per chunk and
-    vectorised over batch and heads, in the kernel's precisions: inputs
-    widened to fp32, products in fp32, cs summed in fp64 and kept as fp32
-    (hi, lo) pairs, the row and column sums of s, dcs, its reverse
-    cumulative sum and the dA partials in fp64, each gradient rounded to
-    its input's dtype at the end.  ``drop`` leaves out one term ("carry":
+    vectorised over batch and heads, in the kernel's precisions and order:
+    inputs widened to fp32; every product over k-slices of 8 in
+    ``terms`` TF32 products each (``_split_matmul`` with ties rounded to
+    even; the kernel's 3, where a bf16 input has no lo term), with the
+    operands in the kernel's roles
+    (the du and dB blocks' S^T = B_j C_i^T and (dy . x)^T = x_j dy_i^T, the
+    row blocks' dy_i x_j^T, dt_j applied to each score after its product);
+    cs summed in fp64 and kept as fp32 (hi, lo) pairs; s = W (dy . u) in
+    fp32, its column sums and each row's partial sums over the 64-key tiles
+    in fp64, the partials added in tile order; dcs, its reverse cumulative
+    sum and the dA partials in fp64; each gradient rounded to its input's
+    dtype at the end.  ``drop`` leaves out one term ("carry":
     exp(cs_last) <h-, G> in dcs_last; "state_du": G B_j in du_j), for the
     check that the limits and the draws see it."""
     b, S, H, P = x.shape
@@ -1285,9 +1316,15 @@ def _ssd_bwd_launch_model(x, dt, A, B, C, dy, dstate, chunk: int,
         lo[:, c0:c1] = (cs - cs.float().double()).float()
     pair = hi + lo                           # exp(cs_i) takes hi + lo
 
+    def mm(u, v):
+        return _split_matmul(u, v, terms, rnd=_tf32_rn)
+
     def decay(i, j):                         # exp(cs_i - cs_j), [b, i, j, H]
         return torch.exp((hi[:, i, None] - hi[:, None, j])
                          + (lo[:, i, None] - lo[:, None, j]))
+
+    def heads(t):                            # [b, l, H, P] -> [b, H, l, P]
+        return t.permute(0, 2, 1, 3)
 
     u = xf * dtf[..., None]
     entering, h = [], torch.zeros((b, H, P, B.shape[-1]))
@@ -1304,8 +1341,9 @@ def _ssd_bwd_launch_model(x, dt, A, B, C, dy, dstate, chunk: int,
     for c in reversed(range(len(spans))):
         c0, c1 = spans[c]
         leaving[c] = g
-        own = torch.einsum("blh,blhp,bln->bhpn", torch.exp(pair[:, c0:c1]),
-                           dyf[:, c0:c1], Cf[:, c0:c1])
+        ey = heads(dyf[:, c0:c1]) * torch.exp(pair[:, c0:c1]).transpose(
+            1, 2)[..., None]                                 # [b, H, l, P]
+        own = mm(ey.transpose(-1, -2), Cf[:, None, c0:c1])   # [b, H, P, N]
         g = torch.exp(pair[:, c1 - 1])[..., None, None] * g + own
     dx, ddt = torch.empty_like(xf), torch.empty_like(dtf)
     dBh = torch.empty((b, H, S, B.shape[-1]))
@@ -1313,47 +1351,62 @@ def _ssd_bwd_launch_model(x, dt, A, B, C, dy, dstate, chunk: int,
     dA = torch.zeros(H, dtype=torch.float64)
     for c, (c0, c1) in enumerate(spans):
         t = torch.arange(c0, c1)
-        Cc, Bc = Cf[:, c0:c1], Bf[:, c0:c1]
-        dyc, uc = dyf[:, c0:c1], u[:, c0:c1]
+        n = c1 - c0
+        Cc, Bc = Cf[:, None, c0:c1], Bf[:, None, c0:c1]      # [b, 1, l, N]
+        dyc, xc = heads(dyf[:, c0:c1]), heads(xf[:, c0:c1])  # [b, H, l, P]
+        dtc = dtf[:, c0:c1].transpose(1, 2)                  # [b, H, l]
         G, Hm = leaving[c], entering[c]
-        # Launch 3: the scores, W = (C_i . B_j) L, M = (dy_i . u_j) L and
-        # s = W (dy_i . u_j), with L an exact 0 where j > i.
-        keep = torch.tril(torch.ones(len(t), len(t), dtype=torch.bool))
+        # Launch 3.  L[i, j] an exact 0 where j > i.
+        keep = torch.tril(torch.ones(n, n, dtype=torch.bool))
         L = torch.where(keep[None, :, :, None], decay(t, t), 0.0)
-        L = L.permute(0, 3, 1, 2)                          # [b, H, i, j]
-        CB = torch.einsum("bin,bjn->bij", Cc, Bc)[:, None]
-        DU = torch.einsum("bihp,bjhp->bhij", dyc, uc)
-        W, M = CB * L, DU * L
-        s = (W * DU).double()
+        L = L.permute(0, 3, 1, 2)                            # [b, H, i, j]
+        LT = L.transpose(-1, -2)                             # [b, H, j, i]
+        # du blocks: W^T = (B_j C_i^T) L^T, (dy . u)^T = dt_j (x_j dy_i^T),
+        # s^T = W^T (dy . u)^T; du_j = W^T dy_i.
+        WT = mm(Bc, Cc.transpose(-1, -2)) * LT
+        DUT = mm(xc, dyc.transpose(-1, -2)) * dtc[..., None]
+        sT = (WT * DUT).double()                             # [b, H, j, i]
+        du = mm(WT, dyc)
+        # dB blocks: M^T = (dy . u)^T L^T; dB_j = M^T C_i.
+        dBc = mm(DUT * LT, Cc)
+        # Row blocks: M = dt_j (dy_i x_j^T) L; dC_i = M B_j.
+        dCc = mm(mm(dyc, xc.transpose(-1, -2)) * dtc[..., None, :] * L, Bc)
+        # The state's terms.
         e_last = decay(torch.tensor([c1 - 1]), t)[:, 0].transpose(1, 2)
-        e_in = torch.exp(pair[:, c0:c1]).transpose(1, 2)  # [b, H, i]
-        GB = torch.einsum("bjn,bhpn->bhjp", Bc, G)
-        GU = torch.einsum("bjhp,bhpn->bhjn", uc, G)
-        HD = torch.einsum("bihp,bhpn->bhin", dyc, Hm)
-        du = torch.einsum("bhij,bihp->bhjp", W, dyc)
+        e_in = torch.exp(pair[:, c0:c1]).transpose(1, 2)     # [b, H, l]
+        GB = mm(Bc, G.transpose(-1, -2))                     # [b, H, l, P]
         if drop != "state_du":
             du = du + e_last[..., None] * GB
-        dBh[:, :, c0:c1] = (torch.einsum("bhij,bin->bhjn", M, Cc)
-                            + e_last[..., None] * GU)
-        dCh[:, :, c0:c1] = (torch.einsum("bhij,bjn->bhin", M, Bc)
-                            + e_in[..., None] * HD)
-        w = (e_last * (GU * Bc[:, None]).sum(-1)).double()
-        r = (e_in * (HD * Cc[:, None]).sum(-1)).double()
-        du = du.transpose(1, 2)                            # [b, j, H, P]
-        dx[:, c0:c1] = dtf[:, c0:c1, :, None] * du
-        # Launch 4: dcs, its reverse cumulative sum da, ddt, dA's share.
-        dcs = s.sum(-1) - s.sum(-2) + r - w                # [b, H, l]
+        w = (e_last * dtc * (xc * GB).sum(-1)).double()
+        dBh[:, :, c0:c1] = dBc + (e_last * dtc)[..., None] * mm(xc, G)
+        HD = mm(dyc, Hm)                                     # [b, H, l, N]
+        dCh[:, :, c0:c1] = dCc + e_in[..., None] * HD
+        r = (e_in * (Cc * HD).sum(-1)).double()
+        dx[:, c0:c1] = (dtc[..., None] * du).transpose(1, 2)
+        # Launch 4: each row's partials of s over the key tiles, in order;
+        # dcs, its reverse cumulative sum da, ddt, dA's share.
+        rows = torch.zeros_like(r)
+        for k0 in range(0, n, 64):
+            rows = rows + sT[:, :, k0:k0 + 64].sum(-2)
+        dcs = rows + r - (sT.sum(-1) + w)                    # [b, H, l]
         if drop != "carry":
             dcs[..., -1] += (torch.exp(pair[:, c1 - 1]).double()
                              * (Hm.double() * G.double()).sum((-1, -2)))
         dcs[..., -1] += w.sum(-1)
         da = dcs.flip(-1).cumsum(-1).flip(-1).transpose(1, 2)  # [b, l, H]
-        ddt[:, c0:c1] = ((xf[:, c0:c1] * du).sum(-1).double()
+        ddt[:, c0:c1] = ((xc * du).sum(-1).transpose(1, 2).double()
                          + A.float().double() * da).float()
         dA += (dtf[:, c0:c1].double() * da).sum((0, 1))
     # Launch 5: the head sums of dB and dC, dA's sum.
     out = (dx, ddt, dA.float(), dBh.sum(1), dCh.sum(1))
     return tuple(g.to(t.dtype) for g, t in zip(out, (x, dt, A, B, C)))
+
+
+# Which TF32 product counts keep the backward's route within the fp32 limit
+# against jax.vjp of ssd_chunked on SSD_BWD_JAX_CASES, both draws: three
+# (the kernel's); one (hi.hi, every fp32 operand rounded to TF32) is read
+# beside it.
+SSD_BWD_TF32_TERMS_PASS = {3: True, 1: False}
 
 
 @pytest.mark.parametrize("draw", SSD_DRAWS)
@@ -1404,6 +1457,32 @@ def test_ssd_bwd_launch_model_matches_plain_backward(case, draw):
             g, w, dtype))
 
 
+@pytest.mark.parametrize("terms", [3, 1], ids=["3xtf32", "tf32"])
+def test_ssd_bwd_tf32_terms_meet_fp32_limit_only_with_split(terms):
+    """The backward's route with ``terms`` TF32 products per k-slice
+    against jax.vjp of ssd_chunked on every SSD_BWD_JAX_CASES case, both
+    draws: the worst max_ratio over the five gradients at the fp32 limit.
+    SSD_BWD_TF32_TERMS_PASS says which counts pass, and the test holds
+    that.  ``pytest -s`` prints the readings."""
+    readings = {}
+    for case in SSD_BWD_JAX_CASES:
+        b, S, H, P, N, chunk, _ = case
+        for draw in SSD_DRAWS:
+            arrs = [torch.from_numpy(a)
+                    for a in _ssd_bwd_inputs(b, S, H, P, N, draw)]
+            got = _ssd_bwd_launch_model(*arrs, chunk, terms=terms)
+            readings[(ssd_case_id(case), draw)] = max(
+                max_ratio(g.numpy(), w)
+                for g, w in zip(got, _jax_ssd_vjp(case, draw)))
+    worst = max(readings.values())
+    passes = worst < SSD_BACKWARD_LIMIT
+    print(f"K3 backward route, {terms} TF32 product(s): "
+          + ", ".join(f"{c} {d} {v:.3e}" for (c, d), v in readings.items())
+          + f" (limit {SSD_BACKWARD_LIMIT}): "
+          + ("passes" if passes else "fails"))
+    assert passes == SSD_BWD_TF32_TERMS_PASS[terms], readings
+
+
 @pytest.mark.parametrize("drop", ["carry", "state_du"])
 def test_ssd_bwd_limits_see_the_state_terms_only_with_slow_decay(drop):
     """Leaving out a term of the state (the carry's decay in dcs_last, or
@@ -1441,6 +1520,20 @@ def test_ssd_wrapper_gradient_on_cpu_is_the_plain_backward():
     for t, w in zip(leaves, want):
         torch.testing.assert_close(t.grad, w, rtol=0, atol=0)
     assert counts == (ssd_scan.launches, ssd_scan.backward_launches)
+
+
+def test_copy_aligned_reads_base_and_strides():
+    """The condition under which the kernels copy 16-byte pieces of rows
+    (and the backward copies dy first where it fails): a 16-byte aligned
+    base and outer strides that are multiples of 16 bytes, a dimension of
+    one element aside."""
+    from repro_torch.kernels import build
+    x = torch.zeros((4, 8))
+    assert build.copy_aligned(x) and build.copy_aligned(x[:, :4])
+    assert not build.copy_aligned(x[:, 1:])          # base 4 bytes in
+    assert not build.copy_aligned(torch.zeros((4, 6)))   # rows of 24 bytes
+    assert build.copy_aligned(torch.zeros((4, 8), dtype=torch.bfloat16))
+    assert build.copy_aligned(torch.zeros((1, 6)))   # one row
 
 
 def test_ssd_backward_entry_refuses_cpu_tensors():

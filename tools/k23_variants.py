@@ -1,11 +1,12 @@
-"""Compile variants of K2 (decode attention) or K3 (SSD scan) and compare
-them on one card.
+"""Compile variants of K2 (decode attention), K3 (SSD scan) or K3's
+backward and compare them on one card.
 
     python3 tools/k23_variants.py KERNEL [--case SPEC ...] NAME:SOURCE[:FLAG...] [...]
 
-KERNEL is ``decode_attention`` or ``ssd_scan``.  Each variant is a CUDA
-source with the C interface of ``src/repro_torch/kernels/csrc/KERNEL.cu``
-(a path relative to the repository's root), compiled by ``nvcc`` with the
+KERNEL is ``decode_attention``, ``ssd_scan`` or ``ssd_scan_bwd``.  Each
+variant is a CUDA source with the C interface of
+``src/repro_torch/kernels/csrc/KERNEL.cu`` (a path relative to the
+repository's root), compiled by ``nvcc`` with the
 port's flags plus its FLAGs (``NAME=VALUE`` becomes ``-DNAME=VALUE``) into
 ``build/variants/``; ``ptxas``' registers and spills are printed.  Then
 every variant runs the kernel's cases of ``repro_torch.kernels.cases`` at
@@ -27,10 +28,21 @@ the variants in turns (each twice, in order and then reversed):
   ``--case SSD_BACKWARD_TRAIN_CASE --case SSD_MAIN_CASE:float32
   --case SSD_FAMILY_MAIN_CASES[0]:float32``.  ``cuobjdump -sass`` counts
   of each variant's tensor-core (``HMMA``) and ``FFMA`` instructions are
-  printed by kernel.
+  printed by kernel;
+* ssd_scan_bwd: every SSD_BACKWARD_CASES case with the JAX test's dt and a
+  slowly decaying one, x, B and C in the model's strided layout, random dy
+  and dstate: each gradient against the plain backward at
+  ``ssd_backward_check``'s limits, two calls bit-equal and finite; then
+  SSD_BACKWARD_TIMED in both dtypes (no dstate, as a train step has none).
+  The blocks an SM of the launches a variant reports
+  (``odin_ssd_scan_bwd_blocks_per_sm``, where it has one) are printed.
+  The parent's source is a variant like any other (``git show
+  HEAD:src/repro_torch/kernels/csrc/ssd_scan_bwd.cu > build/parent.cu``):
+  the C interface is the same, and the wrapper's scratch is at least what
+  it needs.
 
-At the main shape each variant's kernels are also timed one by one with
-``torch.profiler`` (device time per call, the L2 warm).
+At the main (or timed) shape each variant's kernels are also timed one by
+one with ``torch.profiler`` (device time per call, the L2 warm).
 
 All variants run in one process on one card, so their times compare.
 Without a CUDA card it exits nonzero.
@@ -49,6 +61,7 @@ from variant_tools import (build_variants, card, kernel_times,
                            ptxas_summary, sass_summary, time_ms)
 from repro_torch.kernels import build, cases, ops
 from repro_torch.kernels import decode_attention as k2
+from repro_torch.kernels import ssd_scan as k3
 from repro_torch.kernels.cases import (
     DECODE_CASES,
     DECODE_CORNER_CASES,
@@ -56,6 +69,8 @@ from repro_torch.kernels.cases import (
     DECODE_MAIN_RMS_LIMIT,
     DECODE_MAIN_TOLERANCE,
     DECODE_RAGGED_CASES,
+    SSD_BACKWARD_CASES,
+    SSD_BACKWARD_TIMED,
     SSD_CASES,
     SSD_CORNER_CASES,
     SSD_MAIN_CASE,
@@ -64,14 +79,15 @@ from repro_torch.kernels.cases import (
     SSD_RAGGED_CASES,
     SSD_STATE_RMS_LIMIT,
     max_ratio,
+    ssd_backward_check,
     ssd_limit,
     tolerance,
 )
 from repro_torch.kernels.ref import (
     decode_attention_ref,
+    ssd_scan_bwd_ref,
     ssd_scan_ref,
 )
-
 
 
 def rms(t) -> float:
@@ -233,13 +249,94 @@ def check_ssd(libs: dict, use, gen, mains: list) -> bool:
     return ok
 
 
+GRADS = ("dx", "ddt", "dA", "dB", "dC")
+
+
+def bind_backward(lib: ctypes.CDLL) -> None:
+    """The C entry's types, set here so that the wrapper (which sets them
+    where they are unset, with the queries of the current source) takes a
+    variant's library as it is."""
+    fn = lib.odin_ssd_scan_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.odin_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.odin_cuda_error_string.restype = ctypes.c_char_p
+
+
+def check_ssd_bwd(libs: dict, use, gen) -> bool:
+    ok = True
+    for name, lib in libs.items():
+        query = getattr(lib, "odin_ssd_scan_bwd_blocks_per_sm", None)
+        if query is not None:
+            query.argtypes, query.restype = [ctypes.c_int] * 2, ctypes.c_int
+            print(f"{name}: blocks an SM, launch 1 / tile launch: fp32 "
+                  f"{query(0, 0)} / {query(2, 0)}, bf16 {query(0, 1)} / "
+                  f"{query(2, 1)}", flush=True)
+    for case in SSD_BACKWARD_CASES:
+        b, S, H, P, N, chunk, dtype = case
+        for slow in (False, True):
+            ins = ssd_inputs(gen, case, slow, True)
+            dy = torch.randn((b, S, H, P), generator=gen,
+                             device="cuda").to(ins[0].dtype)
+            dstate = torch.randn((b, H, P, N), generator=gen, device="cuda")
+            _, _, cs, states = k3.forward_for_backward(*ins, chunk=chunk)
+            want = ssd_scan_bwd_ref(*ins, dy, dstate)
+            marks = []
+            for name in libs:
+                use(name)
+                got = k3.backward(*ins, cs, states, dy, dstate, chunk=chunk)
+                again = k3.backward(*ins, cs, states, dy, dstate,
+                                    chunk=chunk)
+                readings = [ssd_backward_check(g, w, dtype)
+                            for g, w in zip(got, want)]
+                same = all(torch.equal(g, g2) for g, g2 in zip(got, again))
+                finite = all(bool(torch.isfinite(g.float()).all())
+                             for g in got)
+                good = all(r[2] for r in readings) and same and finite
+                ok &= good
+                marks.append(
+                    f"{name} {'ok' if good else 'BAD'} max_ratio "
+                    f"{max(r[0] for r in readings):.2e} rms "
+                    f"{max(r[1] for r in readings):.2e}" + ("" if good else (
+                        " (" + ", ".join(f"{n} {r[0]:.2e}/{r[1]:.2e}"
+                                         for n, r in zip(GRADS, readings))
+                        + f"; bit-equal {same}, finite {finite})")))
+            print(f"{case} {'slow' if slow else 'JAX'} dt: "
+                  + "; ".join(marks), flush=True)
+    for shape in SSD_BACKWARD_TIMED:
+        for dtype in ("float32", "bfloat16"):
+            case = tuple(shape) + (dtype,)
+            ins = ssd_inputs(gen, case, False, True)
+            dy = torch.randn(ins[0].shape, generator=gen,
+                             device="cuda").to(ins[0].dtype)
+            _, _, cs, states = k3.forward_for_backward(*ins, chunk=shape[5])
+
+            def run():
+                return k3.backward(*ins, cs, states, dy, None,
+                                   chunk=shape[5])
+
+            times = in_turns(libs, use, run)
+            print(f"{case}: " + "  ".join(f"{n} {t[0]:.4f}/{t[1]:.4f} ms"
+                                          for n, t in times.items()),
+                  flush=True)
+            for name in libs:
+                use(name)
+                print(f"{case}, {name}, by kernel: " + kernel_times(run),
+                      flush=True)
+    return ok
+
+
+KERNELS = ("decode_attention", "ssd_scan", "ssd_scan_bwd")
+
+
 def main() -> int:
     args, mains = sys.argv[1:], []
     while len(args) > 2 and args[1] == "--case":
         mains.append(ssd_case(args[2]))
         del args[1:3]
     if (not torch.cuda.is_available() or len(args) < 2
-            or args[0] not in ("decode_attention", "ssd_scan")
+            or args[0] not in KERNELS
             or (mains and args[0] != "ssd_scan")):
         print(__doc__)
         return 2
@@ -256,6 +353,8 @@ def main() -> int:
                                         "FFMA")):
             print(f"  {line}", flush=True)
         libs[name] = ctypes.CDLL(str(path))
+        if kernel == "ssd_scan_bwd":
+            bind_backward(libs[name])
 
     def use(name: str) -> None:
         # The wrappers load their library through build.load, which returns
@@ -263,8 +362,12 @@ def main() -> int:
         build._LIBS[kernel] = libs[name]
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    ok = (check_decode(libs, use, gen) if kernel == "decode_attention"
-          else check_ssd(libs, use, gen, mains or [SSD_MAIN_CASE]))
+    if kernel == "decode_attention":
+        ok = check_decode(libs, use, gen)
+    elif kernel == "ssd_scan":
+        ok = check_ssd(libs, use, gen, mains or [SSD_MAIN_CASE])
+    else:
+        ok = check_ssd_bwd(libs, use, gen)
     return 0 if ok else 1
 
 
