@@ -3,7 +3,8 @@ against their plain versions.
 
     python3 chip_smoke.py
 
-Phases, in the order they run (11, 12 and 13 run between 9 and 10); any
+Phases, in the order they run (11, 12 and 13 run between 9 and 10, 14
+after 10); any
 failure raises and the script exits nonzero.  Each phase prints its wall
 time.
 
@@ -300,7 +301,23 @@ time.
       launch's; the backward's device time a step beside the 63.9 ms its
       first design, fp32 FMA on the CUDA cores, took there), the five
       kernels with the most device time and the peak memory.
-14. the total time, the card line again, one ``{"kernels": [...]}`` line,
+14. the SPMD stage pipeline (``repro_torch.pipeline.spmd``), the
+   earlier models freed: full-width qwen3-4b (bf16, seed 0) is drawn once
+   in this process and shared with 4 spawned gloo ranks on this card
+   through CUDA IPC; each rank keeps its tile of 18 blocks and runs the
+   GPipe schedule over 4 microbatches of 1 x 1024 tokens, 3 times under
+   each of [9,9,9,9], [6,12,9,9] and [12,0,12,12] (one stage empty),
+   handing activations on through host buffers.  Every rank's outputs
+   must be bit-equal to this process's blocks run in order on the same
+   microbatches, and ``SpmdPipelineExecutor.run_query`` over 3 rows (one
+   padding row) on [12,0,12,12] bit-equal to
+   ``LocalPipelineExecutor.run_query`` over the 3 rows at once.  Every
+   rank must launch K1's tensor-core kernel its blocks x 4 times a run.
+   It prints each config's time (the slowest rank's, host clock) beside
+   the single process's, the repack of [9,9,9,9] -> [6,12,9,9] (time and
+   bytes), each rank's hand-offs, host-buffer copies and peak memory.
+   A rank that raises fails the phase.
+15. the total time, the card line again, one ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM data-sheet peaks: 989 TFLOP/s dense bf16 on the
@@ -322,6 +339,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -403,8 +421,16 @@ from repro_torch.core import (  # noqa: E402
     transformer_database,
 )
 from repro_torch.core.mesh import MeshSpec  # noqa: E402
-from repro_torch.models.layers import rms_norm  # noqa: E402
-from repro_torch.pipeline import MeasuredTimeSource  # noqa: E402
+from repro_torch.models.layers import embed, rms_norm  # noqa: E402
+from repro_torch.launch.mesh import spawn_ranks  # noqa: E402
+from repro_torch.pipeline import (  # noqa: E402
+    LocalPipelineExecutor,
+    MeasuredTimeSource,
+    SpmdPipelineExecutor,
+    make_pipeline_fn,
+    stage_mesh,
+    stage_tile,
+)
 from repro_torch.pipeline.executor import next_pow2  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 from repro_torch.serving import engine as engine_lib  # noqa: E402
@@ -616,6 +642,15 @@ K3_BWD_KERNELS = ("ssd_bwd_chunk_dstates", "ssd_bwd_state_pass",
 # ran as fp32 FMA on the CUDA cores (its first design; chip_smoke.py on an
 # NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's.
 K3_BWD_STEP_MS_CUDA_CORES = 63.9
+# Phase 14: the SPMD stage pipeline.  SPMD_STAGES gloo ranks on this one
+# card run full-width qwen3-4b (bf16, seed 0) with tiles of SPMD_CAP
+# blocks over SPMD_MICROBATCHES microbatches of one row of SEQ tokens,
+# under each of SPMD_CONFIGS (the last with one stage empty), each run
+# SPMD_REPS times; then SpmdPipelineExecutor.run_query over
+# SPMD_QUERY_ROWS rows (one padding row) on the last config.
+SPMD_STAGES, SPMD_CAP, SPMD_MICROBATCHES, SPMD_REPS = 4, 18, 4, 3
+SPMD_CONFIGS = ([9, 9, 9, 9], [6, 12, 9, 9], [12, 0, 12, 12])
+SPMD_QUERY_ROWS = 3
 
 
 def log(msg: str) -> None:
@@ -4336,6 +4371,159 @@ def phase_train_bf16(fp32: dict) -> dict:
     return dict(counts=counts, step_s=step_s, losses=losses, busy=busy)
 
 
+def max_abs_diff(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| in fp32, a leading index at a time (a full-width
+    model's logits are 0.9 GiB in bf16)."""
+    return max(float((g.float() - w.float()).abs().max())
+               for g, w in zip(got, want))
+
+
+def spmd_rank(rank: int, cfg, params: dict, inputs: torch.Tensor,
+              refs: torch.Tensor, query: torch.Tensor,
+              query_ref: torch.Tensor) -> dict:
+    """One rank of phase 14 (spawned by ``spawn_ranks``; ``params`` and the
+    references are the parent's, through CUDA IPC).  Returns its times,
+    errors, K1 launches, repack and peak memory."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    mesh = stage_mesh(SPMD_STAGES, device="cuda:0")
+    stage = mesh.axis_index("stage")
+    fn = make_pipeline_fn(cfg, mesh, num_microbatches=SPMD_MICROBATCHES,
+                          cap=SPMD_CAP)
+
+    def timed(f):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = f()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    # Warm-up (K1's library, the library handles), outside the counts.
+    tile = stage_tile(params["blocks"], SPMD_CONFIGS[0], SPMD_CAP, stage)
+    fn(tile, SPMD_CONFIGS[0], inputs)
+    reset_counts(flash_attention)
+    got = dict(device=str(mesh.device), backend=mesh.backend, configs={})
+    for i, config in enumerate(SPMD_CONFIGS):
+        if i > 0:
+            tile, repack_ms = timed(lambda: stage_tile(
+                params["blocks"], config, SPMD_CAP, stage))
+            if i == 1:
+                got["repack"] = dict(ms=repack_ms, bytes=tree_bytes(tile))
+        runs = [timed(lambda: fn(tile, config, inputs))
+                for _ in range(SPMD_REPS)]
+        if not all(torch.equal(y, runs[0][0]) for y, _ in runs[1:]):
+            raise AssertionError(f"rank {rank}: {config}'s runs differ")
+        got["configs"][str(config)] = dict(
+            ms=[ms for _, ms in runs],
+            max_abs_err=max_abs_diff(runs[0][0], refs))
+    del tile
+    ex = SpmdPipelineExecutor(cfg, params, SPMD_STAGES, cap=SPMD_CAP,
+                              num_microbatches=SPMD_MICROBATCHES, mesh=mesh)
+    logits, got["query_ms"] = timed(
+        lambda: ex.run_query(query, SPMD_CONFIGS[-1]))
+    got["query_max_abs_err"] = max_abs_diff(logits, query_ref)
+    got["query_finite"] = bool(torch.isfinite(logits).all())
+    got["launches"] = {name: getattr(flash_attention, name)
+                       for name in vars(flash_attention)
+                       if name.endswith("launches")}
+    got["sends"], got["host_copies"] = fn.sends, fn.host_copies
+    got["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return got
+
+
+def phase_spmd() -> dict:
+    """14: the SPMD stage pipeline, SPMD_STAGES gloo ranks on this card."""
+    cfg, params = init_model(get_config("qwen3-4b"))
+    L, M = cfg.num_blocks, SPMD_MICROBATCHES
+    rng = np.random.default_rng(14)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (M, 1, SEQ)),
+                             device="cuda")
+    query = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                         (SPMD_QUERY_ROWS, SEQ)),
+                            device="cuda")
+    ex = LocalPipelineExecutor(cfg, params, device="cuda")
+    pos = torch.arange(SEQ, device="cuda").expand(1, SEQ)
+    with torch.no_grad():
+        inputs = embed(params["embed"], tokens)
+    # The single-process reference: the blocks in order, one microbatch at
+    # a time, on this card (the first pass warms it).
+    single = []
+    for _ in range(SPMD_REPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refs = torch.stack([ex.stage_fn(inputs[m], pos, 0, L)
+                            for m in range(M)])
+        torch.cuda.synchronize()
+        single.append(1e3 * (time.perf_counter() - t0))
+    single = single[1:]
+    refs = refs.clone()             # a normal tensor, for CUDA IPC
+    # run_query's reference: LocalPipelineExecutor.run_query over the
+    # rows at once (the pipeline runs one row a microbatch).
+    logits, _ = ex.run_query(query, [L])
+    logits = logits.clone()
+    init_file = ROOT / "build" / f"spmd_rendezvous_{os.getpid()}"
+    init_file.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn_ranks(spmd_rank, SPMD_STAGES,
+                            (cfg, params, inputs, refs, query, logits),
+                            backend="gloo", init_file=str(init_file))
+    finally:
+        init_file.unlink(missing_ok=True)
+    log(f"  {SPMD_STAGES} gloo ranks on {ranks[0]['device']} (cap "
+        f"{SPMD_CAP}, M {M}, microbatches of 1 x {SEQ} tokens): spawned, "
+        f"run and joined in {time.perf_counter() - t0:.1f} s; the parent's "
+        f"params shared through CUDA IPC")
+    log(f"  single process, the {M} microbatches through the {L} blocks "
+        f"in order: {', '.join(f'{ms:.2f}' for ms in single)} ms (host "
+        f"clock, synchronised)")
+    failed = []
+    launches = 0
+    for config in SPMD_CONFIGS:
+        key = str(config)
+        ms = [max(r["configs"][key]["ms"][i] for r in ranks)
+              for i in range(SPMD_REPS)]
+        err = max(r["configs"][key]["max_abs_err"] for r in ranks)
+        log(f"  {config}: {', '.join(f'{t:.2f}' for t in ms)} ms (the "
+            f"slowest rank's, host clock, synchronised; single process "
+            f"{np.median(single):.2f}); max|d| against the single process "
+            f"{err:.3e} on every rank: "
+            f"{[r['configs'][key]['max_abs_err'] for r in ranks]}")
+        if err != 0.0:
+            failed.append((config, err))
+    repack = [r["repack"] for r in ranks]
+    repack_ms = ", ".join(f"{p['ms']:.2f}" for p in repack)
+    log(f"  repack {list(SPMD_CONFIGS[0])} -> {list(SPMD_CONFIGS[1])}: "
+        f"{repack_ms} ms by rank, "
+        f"{sum(p['bytes'] for p in repack) / 2**30:.2f} GiB of tiles "
+        f"written ({repack[0]['bytes'] / 2**30:.2f} GiB a rank)")
+    worst = max(r["query_max_abs_err"] for r in ranks)
+    log(f"  run_query, {SPMD_QUERY_ROWS} rows in {M} microbatches on "
+        f"{SPMD_CONFIGS[-1]}: max|d| against LocalPipelineExecutor."
+        f"run_query {worst:.3e} on every rank; "
+        f"{max(r['query_ms'] for r in ranks):.2f} ms")
+    if worst != 0.0:
+        failed.append(("run_query", worst))
+    for stage, r in enumerate(ranks):
+        want = (SPMD_REPS * sum(c[stage] for c in SPMD_CONFIGS)
+                + SPMD_CONFIGS[-1][stage]) * M
+        got = r["launches"]
+        log(f"  rank {stage}: K1 {got['tensor_core_launches']} launches on "
+            f"its tensor-core kernel (= {want}: its blocks x {M} "
+            f"microbatches, {SPMD_REPS} runs a config and run_query), "
+            f"{r['sends']} hand-offs, {r['host_copies']} host-buffer "
+            f"copies, peak {r['peak_bytes'] / 2**30:.2f} GiB "
+            f"(torch.cuda.max_memory_allocated)")
+        if (got["tensor_core_launches"] != want or got["launches"] != want
+                or not r["query_finite"]):
+            failed.append(("rank", stage, got, r["query_finite"]))
+        launches += got["tensor_core_launches"]
+    if failed:
+        raise AssertionError(f"the SPMD pipeline: {failed}")
+    return dict(launches=launches)
+
+
 def phase_train_cli() -> dict:
     """13d: the training CLI once at full width."""
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
@@ -4614,6 +4802,9 @@ def main() -> None:
                   phase_jamba)
     cached_10 = [ds["cached"], llava["cached"], mixtral["cached"],
                  jamba["cached"]]
+    free_memory()
+    spmd = phase("phase 14: the SPMD stage pipeline, 4 gloo ranks on this "
+                 "card", phase_spmd)
 
     def worst(kernel: str, readings: list) -> float:
         return max([m["max_abs_err"] for m in readings]
@@ -4626,14 +4817,16 @@ def main() -> None:
     k3 = dict(k3, max_abs_err=worst("K3", [k3]))
     # Launches on the main paths: the closed-loop serves (qwen3-4b,
     # deepseek-moe-16b, hubert-xlarge), the batched one, phase 11's
-    # serves and block-time measurement and phase 12's fleets for K1; the
-    # decode steps of every cached path for K2; the closed-loop and batched
-    # serves of mamba2-370m and jamba's forward and prefill for K3.
+    # serves and block-time measurement, phase 12's fleets and phase 14's
+    # ranks for K1; the decode steps of every cached path for K2; the
+    # closed-loop and batched serves of mamba2-370m and jamba's forward and
+    # prefill for K3.
     rows = [
         ("flash_attention", "flash_attention.py:96",
          served["counts"]["tensor_core_launches"]
          + batched["qwen3-4b"]["launches"] + ds["served"]["launches"]
-         + hub["served"]["launches"] + k1_phase11 + fleet["launches"], k1),
+         + hub["served"]["launches"] + k1_phase11 + fleet["launches"]
+         + spmd["launches"], k1),
         ("decode_attention", "decode_attention.py:78",
          cached["qwen3-4b"]["launches"] + sum(c["k2"] for c in cached_10),
          k2),

@@ -15,9 +15,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List, Tuple, Union
+from typing import Any, Dict, Tuple, Union
 
 import torch
+
+from repro_torch.util.tree import leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,23 +33,6 @@ class AdamWConfig:
     warmup_steps: int = 100
     total_steps: int = 10_000
     min_lr_frac: float = 0.1
-
-
-def leaves(tree: Dict) -> List[torch.Tensor]:
-    """The leaves of a nested dict, keys sorted at every level (the order
-    of ``jax.tree.leaves``)."""
-    out = []
-    for key in sorted(tree):
-        node = tree[key]
-        out.extend(leaves(node) if isinstance(node, dict) else [node])
-    return out
-
-
-def tree_map(fn: Callable, tree: Dict, *rest: Dict) -> Dict:
-    """``fn`` over the leaves of ``tree`` and of the same-shaped ``rest``:
-    a new nested dict."""
-    return {k: tree_map(fn, v, *(r[k] for r in rest)) if isinstance(v, dict)
-            else fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
 
 
 def lr_schedule(c: AdamWConfig,

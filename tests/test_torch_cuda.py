@@ -1130,3 +1130,57 @@ def test_mamba_train_step_on_card_matches_plain_path(card, arch, dtype):
         err = _rms(g.float() - w.float())
         assert err <= max(grad_limit, floor.get(k, 0.0)) * _rms(w) or (
             err == 0.0), k
+
+
+def _spmd_card_rank(rank, cfg, params, inputs, config, cap):
+    """One of two gloo ranks on the card: its stage of ``config`` through
+    the GPipe schedule (spawned by ``spawn_ranks``)."""
+    from repro_torch.launch.mesh import make_stage_mesh
+    from repro_torch.pipeline.spmd import make_pipeline_fn, stage_tile
+    mesh = make_stage_mesh(2, device="cuda:0")
+    fn = make_pipeline_fn(cfg, mesh, num_microbatches=inputs.shape[0],
+                          cap=cap)
+    tile = stage_tile(params["blocks"], config, cap, mesh.axis_index("stage"))
+    n = flash_attention.tensor_core_launches
+    out = fn(tile, config, inputs)
+    torch.cuda.synchronize()
+    return dict(out=out.float().cpu().numpy(), device=str(mesh.device),
+                launches=flash_attention.tensor_core_launches - n,
+                sends=fn.sends, host_copies=fn.host_copies)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", [[1, 3], [4, 0]], ids=str)
+def test_spmd_pipeline_under_gloo_on_card(card, tmp_path, config):
+    """Two gloo ranks on one card at smoke width (bf16, K1 on its
+    tensor-core kernel): the pipeline's outputs bit-equal to the blocks
+    run in order in this process, every CUDA hand-off and the final
+    broadcast through a host buffer (gloo's point-to-point ops take CPU
+    tensors only)."""
+    import dataclasses
+
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models.layers import embed
+    from repro_torch.pipeline import LocalPipelineExecutor
+    cfg = dataclasses.replace(get_smoke_config("qwen3-8b"), num_layers=4)
+    params = Model(cfg).init_params(0, dtype=torch.bfloat16, device="cuda")
+    M, S = 2, 128
+    tokens = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (M, 1, S)), device="cuda")
+    with torch.no_grad():
+        inputs = embed(params["embed"], tokens)
+    ex = LocalPipelineExecutor(cfg, params, device="cuda")
+    pos = torch.arange(S, device="cuda").expand(1, S)
+    ref = torch.stack([ex.stage_fn(inputs[m], pos, 0, cfg.num_blocks)
+                       for m in range(M)]).float().cpu().numpy()
+    ranks = spawn_ranks(_spmd_card_rank, 2,
+                        (cfg, params, inputs, config, 4), backend="gloo",
+                        init_file=str(tmp_path / "rendezvous"))
+    for rank, r in enumerate(ranks):
+        assert r["device"] == "cuda:0"
+        assert np.array_equal(r["out"], ref)
+        assert r["launches"] == config[rank] * M
+    # Rank 0 sends M activations (M host copies) and receives the
+    # broadcast (1); rank 1 receives M (M) and sends the broadcast (2).
+    assert [r["sends"] for r in ranks] == [M, 0]
+    assert [r["host_copies"] for r in ranks] == [M + 1, M + 2]

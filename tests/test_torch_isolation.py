@@ -70,7 +70,8 @@ def test_module_name_check_sees_strings(tmp_path):
 def test_import_leaves_jax_and_repro_unloaded():
     code = ("import sys, repro_torch, repro_torch.serving.engine, "
             "repro_torch.launch.serve, repro_torch.convert, "
-            "repro_torch.workloads, repro_torch.telemetry\n"
+            "repro_torch.workloads, repro_torch.telemetry, "
+            "repro_torch.pipeline.spmd, repro_torch.launch.mesh\n"
             "from repro_torch.workloads import make_lengths, make_workload\n"
             "make_workload('bursty', burst_rate=5.0, seed=0)"
             ".inter_arrivals(8)\n"
