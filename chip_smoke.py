@@ -4,7 +4,7 @@ against their plain versions.
     python3 chip_smoke.py
 
 Phases, in the order they run (11, 12 and 13 run between 9 and 10, 14
-after 10); any
+and 15 after 10); any
 failure raises and the script exits nonzero.  Each phase prints its wall
 time.
 
@@ -80,7 +80,9 @@ time.
    device for queries 8-19.  It must rebalance, move blocks off the slowed
    stage, conserve blocks, and run every block's attention through K1's
    tensor-core kernel.  A clean query's block time is printed beside the
-   one measured when K1 ran bf16 on the CUDA cores.
+   one measured when K1 ran bf16 on the CUDA cores.  Then one query
+   through ``Model.prefill`` into a cache of 1024 slots is timed (host
+   clock, synchronised) with the peak memory around it, for phase 15c.
 7. full-width mamba2-370m (48 blocks, bf16, random weights from seed 0):
    K3 at block 0's own scan inputs against the plain scan, with the
    model's dt_bias and with dt_bias drawn as Mamba2's reference init draws
@@ -212,9 +214,13 @@ time.
       then edf.  The summary has every per-tier key, only best_effort is
       downgraded, and the small pool runs K1 at qwen2-0.5b's shape;
    d. a crash of replica 0 for 10 probe services on the arrival clock and
-      a flaky window over the run (p 0.1), retries 3 and hedging after 2
-      services, then retries 0: no query served by replica 0 arrived in
-      its window, ``on_recover`` fires once per breaker probe,
+      a flaky window over the run (p 0.1), round_robin (replica 0 takes
+      one of the window's first four admitted queries), retries 3 and
+      hedging after 2 services, then retries 0: replica 0 took at least
+      one query that arrived in its window and failed on the crash (the
+      count is printed), its breaker opens and is probed after its window,
+      no query served by replica 0 arrived in its window,
+      ``on_recover`` fires once per breaker probe,
       availability with retries is at least 0.99 and above the no-retry
       run's, completed + failed = admitted.  Then one engine under the
       query-indexed plan ``crash@5+3,flaky@0+1000:p=0.2`` with retries 2,
@@ -317,18 +323,43 @@ time.
    the single process's, the repack of [9,9,9,9] -> [6,12,9,9] (time and
    bytes), each rank's hand-offs, host-buffer copies and peak memory.
    A rank that raises fails the phase.
-15. the total time, the card line again, one ``{"kernels": [...]}`` line,
+15. the device examples and the dry run, the earlier models freed:
+   a. ``examples/serve_interference_torch.py``'s ``main`` at its defaults
+      (8 smoke-width qwen3-4b blocks in fp32, 80 queries of 128 tokens:
+      odin, lls, hybrid and none, bursty at max_batch 1 and 8, drain and
+      continuous batching over mixed lengths): every section serves every
+      query, each scheduler's summary and the batched against unbatched
+      accounting are printed, every K1 launch is the fp32 kernel's (its
+      plain entry point), counted by shape, each shape's first launch held
+      against the plain version at the fp32 tolerance (2e-5);
+   b. ``examples/train_small_torch.py``'s ``main`` (qwen3-100m, 300 steps
+      of 4 x 128 tokens in fp32, checkpoints at steps 100 and 200 under
+      ``build/``, deleted after): the loss falls, K1 launches its fp32
+      forward 2 x 8 x 300 times (half of them the LSE entry) and its
+      backward 8 x 300 times, the first launch of each entry point and of
+      the backward held against the plain version on its inputs (2e-5;
+      dq, dk, dv at 1e-4 of max |ref|); the median step time, tokens/s,
+      the peak memory;
+   c. ``launch/dryrun.py`` on the meta device for 13b, 13e, 13f and a
+      phase-6 prefill of qwen3-4b (1 x 1024, timed in phase 6): the
+      predicted argument bytes and peak beside ``max_memory_allocated``,
+      the roofline bound beside the measured step, and step_mfu (analytic
+      FLOPs over the step time times the dtype's peak) beside its
+      prediction; a step_mfu above 1.05 fails the phase.
+16. the total time, the card line again, one ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``.
 
-Bounds use the H100 SXM data-sheet peaks: 989 TFLOP/s dense bf16 on the
-tensor cores and 3.35 TB/s of HBM3.
+Bounds use the H100 SXM data-sheet peaks (``repro_torch/launch/roofline.py``):
+989 TFLOP/s dense bf16 on the tensor cores and 3.35 TB/s of HBM3.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import gc
+import importlib.util
 import json
+import math
 import os
 import re
 import shutil
@@ -448,6 +479,13 @@ from repro_torch.schedulers.runtime import (  # noqa: E402
 )
 from repro_torch.configs.base import InputShape  # noqa: E402
 from repro_torch.launch import measured_db  # noqa: E402
+from repro_torch.launch import dryrun, roofline  # noqa: E402
+from repro_torch.launch.roofline import (  # noqa: E402
+    HBM_BW,
+    PEAK_BF16_FLOPS,
+    PEAK_FP32_FLOPS,
+    PEAK_TF32_FLOPS,
+)
 from repro_torch.launch.analytic import analytic_cost  # noqa: E402
 from repro_torch.launch.stressors import (  # noqa: E402
     card_scenarios,
@@ -477,10 +515,6 @@ from repro_torch.workloads import (  # noqa: E402
     run_pipeline,
 )
 
-PEAK_BF16_FLOPS = 989e12      # H100 SXM, dense bf16 tensor cores
-PEAK_FP32_FLOPS = 67e12       # H100 SXM, fp32 outside the tensor cores
-PEAK_TF32_FLOPS = 495e12      # H100 SXM, dense TF32 tensor cores
-PEAK_HBM_BYTES = 3.35e12      # H100 SXM, HBM3
 KERNELS = ("flash_attention_bf16", "flash_attention", "flash_attention_bwd",
            "flash_attention_bwd_bf16", "decode_attention", "ssd_scan",
            "ssd_scan_bwd")
@@ -578,10 +612,10 @@ MDB_REPEATS = 3
 # at FLEET_OVERLOAD x R / FLEET_REPLICAS over SHORT_QUERIES; 12c: 2
 # qwen3-4b and 2 SMALL_ARCH replicas at FLEET_OVERLOAD x R, SHORT_QUERIES;
 # 12d:
-# FAULT_QUERIES poisson arrivals at FAULT_LOAD x R, replica 0 down
-# FAULT_CRASH_SERVICES x s from the arrival of query FAULT_QUERIES // 4,
-# flaky at p FAULT_FLAKY_P throughout, and one engine under the
-# query-indexed ENGINE_FAULTS.  Over six runs of 12a on the CPU at smoke
+# FAULT_QUERIES poisson arrivals at FAULT_LOAD x R, routed by FAULT_ROUTER,
+# replica 0 down FAULT_CRASH_SERVICES x s from the arrival of query
+# FAULT_QUERIES // 4, flaky at p FAULT_FLAKY_P throughout, and one engine
+# under the query-indexed ENGINE_FAULTS.  Over six runs of 12a on the CPU at smoke
 # width, odin_aware's share of 48 queries sent to the slowed replica read
 # 0.125-0.25 (round_robin's is 0.25 by construction), of 96 0.18-0.23; and
 # on an NVIDIA H100 80GB HBM3 at 700 W a queue at 2R over 48 queries
@@ -604,6 +638,13 @@ FAULT_FLAKY_P, FAULT_RETRIES, FAULT_HEDGE_SERVICES = 0.1, 3, 2.0
 # after it recovers crashes again (the fault clock is its arrival), and the
 # breaker then keeps it off replica 0 for the rest of its retries.
 FAULT_COOLDOWN, FAULT_MIN_AVAILABILITY = 0.4, 0.99
+# 12d's subject is the breaker: round robin hands replica 0 one of the
+# first four admitted queries of the window's 16 arrivals whatever the
+# host's times; that dispatch fails on the crash, whose known recovery
+# time then holds the breaker open to the window's end.  odin_aware
+# follows measured times and in one run on the card sent it none (12a
+# covers odin_aware).
+FAULT_ROUTER = "round_robin"
 ENGINE_FAULTS, ENGINE_RETRIES, ENGINE_FAULT_QUERIES = \
     "crash@5+3,flaky@0+1000:p=0.2", 2, 24
 
@@ -747,10 +788,9 @@ def time_ms(fn, reps: int = 30, warmup: int = 3, flush=None) -> float:
 
 def bound(flops: float, nbytes: float, peak_flops: float) -> tuple:
     """(bound_ms, bound_by): the larger of the operations over the peak
-    and the bytes over HBM's rate."""
-    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_HBM_BYTES
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
+    and the bytes over HBM's rate (``roofline.bound``), in ms."""
+    seconds, by = roofline.bound(flops, nbytes, peak_flops)
+    return 1e3 * seconds, by
 
 
 def attention_pairs(S: int, causal: bool, window=None) -> int:
@@ -1121,7 +1161,7 @@ def ssd_fp32_check(gen) -> dict:
             f"needed, as 3xTF32 at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s "
             f"{tf32[0]:.5f} ms, on the fp32 cores at "
             f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s {cuda[0]:.5f} ms; "
-            f"{nbytes / 1e6:.2f} MB {1e3 * nbytes / PEAK_HBM_BYTES:.5f} ms); "
+            f"{nbytes / 1e6:.2f} MB {1e3 * nbytes / HBM_BW:.5f} ms); "
             f"{executed / 1e9:.3f} GFLOP of TF32 products executed, "
             f"{executed / ms / 1e9:.2f} TFLOP/s; "
             f"{grid_line(k3_lib.launch_shape(b, S, H, P, N, chunk, x.dtype))}")
@@ -1434,6 +1474,7 @@ def phase_qwen(cfg, params, kernel_ms: float) -> dict:
         f"one block {block_ms:.3f} ms, of which attention {kernel_ms:.3f}"
         f" ms ({100 * kernel_ms / block_ms:.0f}%)")
     served = serve_under_odin(cfg, params, flash_attention, "K1", kernel_ms)
+    served["prefill"] = time_prefill(cfg, params)
     # Serving launches no training kernel: no LSE forward, no backward.
     want = {"tensor_core_launches": cfg.num_blocks * NUM_QUERIES,
             "fp32_launches": 0, "lse_launches": 0,
@@ -1449,6 +1490,28 @@ def phase_qwen(cfg, params, kernel_ms: float) -> dict:
         f"{products / 1e9:.1f} GFLOP, {1e3 * products / PEAK_BF16_FLOPS:.3f}"
         f" ms at the bf16 peak")
     return served
+
+
+def time_prefill(cfg, params) -> dict:
+    """One query of SEQ tokens through ``Model.prefill`` into a cache of
+    SEQ slots (the dry run's prefill step at B 1): its host-clock time
+    (synchronised, median of 5) and the peak device memory around it."""
+    model = Model(cfg)
+    tokens = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (1, SEQ)), device="cuda")
+    with torch.inference_mode():
+        model.prefill(params, tokens,
+                      cache=model.init_cache(1, SEQ, device="cuda"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = wall_ms(lambda: model.prefill(
+            params, tokens, cache=model.init_cache(1, SEQ, device="cuda")),
+            reps=5)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  Model.prefill of 1 x {SEQ} tokens into {SEQ} slots: {ms:.2f} ms "
+        f"(host clock, synchronised, median of 5); peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    return dict(step_s=ms / 1e3, peak=peak)
 
 
 def phase_mamba(cfg, params, kernel_ms: float) -> dict:
@@ -2358,7 +2421,7 @@ def phase_deepseek(k1_ms: float) -> dict:
                 f"({100 * moe_ms / block_ms:.0f}%); bounds: "
                 f"{1e3 * flops / PEAK_BF16_FLOPS:.3f} ms of operations "
                 f"({flops / 1e9:.1f} GFLOP at the bf16 peak), "
-                f"{1e3 * nbytes / PEAK_HBM_BYTES:.3f} ms of bytes "
+                f"{1e3 * nbytes / HBM_BW:.3f} ms of bytes "
                 f"({weight_bytes / 2**30:.3f} GiB of weights); "
                 f"{flops / block_ms / 1e9:.1f} TFLOP/s achieved")
     log(f"  block 0's attention sublayer, K1 vs plain attention: rms|d|/"
@@ -2389,7 +2452,7 @@ def phase_deepseek(k1_ms: float) -> dict:
                   * cfg.num_kv_heads * cfg.head_dim * 2)
     log(f"  a decode step reads every expert of every block (the dense "
         f"dispatch): {step_bytes / 2**30:.2f} GiB, "
-        f"{1e3 * step_bytes / PEAK_HBM_BYTES:.2f} ms at the HBM peak, "
+        f"{1e3 * step_bytes / HBM_BW:.2f} ms at the HBM peak, "
         f"against a median step of {np.median(cached['ms_per_step']):.2f} ms")
     log_memory("deepseek-moe-16b")
     return dict(served=served, cached=cached)
@@ -2866,8 +2929,9 @@ class K1Shapes:
     """While active, counts every K1 launch the models make through
     ``ops`` by shape, and keeps the inputs and output of the first launch
     of each distinct shape; ``check`` then holds each against the plain
-    version on those inputs at the main limits.  Nothing here launches a
-    kernel, so the launch counts stay those of the path."""
+    version on those inputs, bf16 at MAIN_TOLERANCE and MAIN_RMS_LIMIT,
+    fp32 at ``tolerance("float32")``.  Nothing here launches a kernel, so
+    the launch counts stay those of the path."""
 
     def __init__(self):
         self.counts, self.first = {}, {}
@@ -2884,8 +2948,8 @@ class K1Shapes:
                        str(q.dtype).replace("torch.", ""))
                 self.counts[key] = self.counts.get(key, 0) + 1
                 if key not in self.first:
-                    self.first[key] = (q.clone(), k.clone(), v.clone(),
-                                       out.clone())
+                    self.first[key] = tuple(t.detach().clone()
+                                            for t in (q, k, v, out))
             return out
 
         ops.flash_attention = flash
@@ -2896,29 +2960,123 @@ class K1Shapes:
         return False
 
     def check(self) -> dict:
-        """Each distinct shape's first launch against the plain version
-        at MAIN_TOLERANCE and MAIN_RMS_LIMIT; returns the readings."""
+        """Each distinct shape's first launch against the plain version,
+        bf16 at MAIN_TOLERANCE and MAIN_RMS_LIMIT, fp32 at
+        ``tolerance("float32")`` with no rms limit; returns the
+        readings."""
         out = {}
         for key, (q, k, v, got) in self.first.items():
             causal, window = key[5], key[6]
+            # bf16 at the main path's limits, fp32 at the fp32 cases' one
+            tol, rms_limit = ((MAIN_TOLERANCE, MAIN_RMS_LIMIT)
+                              if key[7] == "bfloat16"
+                              else (tolerance(key[7]), None))
             r = compare(got, flash_attention_ref(q, k, v, causal=causal,
                                                  window=window),
-                        MAIN_TOLERANCE, f"phase 12's K1 launch {key}",
-                        MAIN_RMS_LIMIT)
+                        tol, f"K1 launch {key}", rms_limit)
             out[key] = dict(r, launches=self.counts[key])
             log(f"  K1 {key}: {self.counts[key]} launches; the first "
                 f"against the plain version on its inputs: max |err| "
                 f"{r['max_abs_err']:.3e}, rms err / rms ref "
                 f"{r['rms_err'] / r['rms_ref']:.3e} (limits "
-                f"{MAIN_TOLERANCE}, rms {MAIN_RMS_LIMIT})")
+                f"{tol}, rms {rms_limit})")
         self.first.clear()
         return out
+
+
+class K1TrainLaunches:
+    """While active, keeps the inputs and outputs of the first launch of
+    K1's fp32 LSE entry point (``forward_for_backward``) and of its fp32
+    backward kernel at each distinct shape, as a training step makes them
+    through K1's autograd function; ``check`` then holds each against the
+    plain version on those inputs: the output at ``tolerance("float32")``,
+    dq, dk and dv at BACKWARD_LIMIT of max |ref|.  Nothing here launches a
+    kernel, so the launch counts stay those of the path."""
+
+    def __init__(self):
+        self.first = {}
+
+    def _keep(self, kind, q, k, causal, window, ins, outs):
+        key = (kind, int(q.shape[0]), int(q.shape[1]), int(k.shape[1]),
+               int(q.shape[2]), int(q.shape[3]), causal, window,
+               str(q.dtype).replace("torch.", ""))
+        if key not in self.first:
+            self.first[key] = tuple(tuple(t.detach().clone() for t in ts)
+                                    for ts in (ins, outs))
+
+    def __enter__(self):
+        self._saved = fwd, bwd = k1_lib.forward_for_backward, k1_lib.backward
+
+        def forward_for_backward(q, k, v, *, causal=True, window=None):
+            out = fwd(q, k, v, causal=causal, window=window)
+            self._keep("fwd", q, k, causal, window, (q, k, v), out[:1])
+            return out
+
+        def backward(q, k, v, o, lse, do, *, causal=True, window=None):
+            grads = bwd(q, k, v, o, lse, do, causal=causal, window=window)
+            self._keep("bwd", q, k, causal, window, (q, k, v, do), grads)
+            return grads
+
+        k1_lib.forward_for_backward, k1_lib.backward = (forward_for_backward,
+                                                        backward)
+        return self
+
+    def __exit__(self, *exc):
+        k1_lib.forward_for_backward, k1_lib.backward = self._saved
+        return False
+
+    def check(self) -> dict:
+        """Each kept launch against the plain version; returns the worst
+        max |err| of each kind ("fwd", "bwd")."""
+        worst = dict(fwd=0.0, bwd=0.0)
+        for key, (ins, outs) in self.first.items():
+            kind, causal, window, dtype = key[0], key[6], key[7], key[8]
+            if dtype != "float32":
+                raise AssertionError(f"K1 training launch {key}: only the "
+                                     f"fp32 route is held here")
+            if kind == "fwd":
+                q, k, v = ins
+                r = compare(outs[0], flash_attention_ref(
+                    q, k, v, causal=causal, window=window),
+                    tolerance(dtype), f"K1 LSE launch {key}")
+                err = r["max_abs_err"]
+                log(f"  K1 LSE entry {key[1:]}: the first launch against "
+                    f"the plain version on its inputs: max |err| "
+                    f"{err:.3e} (limits {tolerance(dtype)})")
+            else:
+                q, k, v, do = ins
+                want = flash_attention_bwd_ref(q, k, v, do, causal=causal,
+                                               window=window)
+                torch.cuda.synchronize()
+                ratios = [max_ratio(g, w) for g, w in zip(outs, want)]
+                err = max(float((g - w).abs().max())
+                          for g, w in zip(outs, want))
+                log(f"  K1 backward {key[1:]}: the first launch against "
+                    f"the plain backward on its inputs: max|err|/max|ref| "
+                    f"dq {ratios[0]:.3e} dk {ratios[1]:.3e} dv "
+                    f"{ratios[2]:.3e} (limit {BACKWARD_LIMIT}), max |err| "
+                    f"{err:.3e}")
+                if not (max(ratios) <= BACKWARD_LIMIT and all(
+                        bool(torch.isfinite(g).all()) for g in outs)):
+                    raise AssertionError(f"K1 backward launch {key}: "
+                                         f"{ratios} (limit "
+                                         f"{BACKWARD_LIMIT})")
+            worst[kind] = max(worst[kind], err)
+        if not all(any(key[0] == kind for key in self.first)
+                   for kind in worst):
+            raise AssertionError(f"K1 training launches kept: "
+                                 f"{list(self.first)}")
+        self.first.clear()
+        return worst
 
 
 class ProbeCounter(HealthTracker):
     """The fleet's circuit breaker, counting its probes: a dispatch to a
     replica whose breaker went half-open (the first ``take_rewarm`` of
-    each half-open spell), per replica."""
+    each half-open spell), per replica; and the recovery times its crash
+    failures reported.  A time-indexed crash fails exactly the dispatches
+    of queries that arrived inside its window, and reports the window's
+    end, so ``crash_untils[r]`` holds one entry per such dispatch."""
 
     made = []
 
@@ -2927,6 +3085,7 @@ class ProbeCounter(HealthTracker):
         self.probes = [0] * self.num_replicas
         self._spell = [False] * self.num_replicas
         self.opens = [0] * self.num_replicas
+        self.crash_untils = [[] for _ in range(self.num_replicas)]
         ProbeCounter.made.append(self)
 
     def healthy(self, r, now):
@@ -2943,6 +3102,8 @@ class ProbeCounter(HealthTracker):
         return super().take_rewarm(r)
 
     def record_failure(self, r, now, until=float("nan")):
+        if until == until:             # a crash: its known recovery time
+            self.crash_untils[r].append(until)
         before = self.state(r)
         super().record_failure(r, now, until=until)
         if before != OPEN and self.state(r) == OPEN:
@@ -3237,26 +3398,78 @@ class Completed:
         return rec
 
 
+def fault_window(rate: float, service: float, n: int) -> dict:
+    """12d's fault plan for ``n`` poisson arrivals at ``rate`` (seed 5): a
+    crash of replica 0 for FAULT_CRASH_SERVICES x ``service`` from the
+    arrival of query n // 4, on the workload's clock (the fleet loop draws
+    the same arrivals), and a flaky window over the whole run; with the
+    hedge delay and the serve_cluster options of both runs but retries."""
+    arrivals = np.cumsum(make_workload("poisson", rate=rate, seed=5)
+                         .inter_arrivals(n))
+    start = float(arrivals[n // 4])
+    dur = FAULT_CRASH_SERVICES * service
+    plan = (f"crash@{start!r}+{dur!r}:r=0,"
+            f"flaky@0+{10 * float(arrivals[-1])!r}:p={FAULT_FLAKY_P}")
+    hedge = FAULT_HEDGE_SERVICES * service
+    return dict(start=start, dur=dur, plan=plan, hedge=hedge,
+                span=float(arrivals[-1]),
+                kwargs=dict(router=FAULT_ROUTER, workload="poisson",
+                            workload_kwargs=dict(rate=rate, seed=5),
+                            faults=plan, hedge_after=hedge,
+                            health_kwargs=dict(cooldown=FAULT_COOLDOWN)))
+
+
+def fault_checks(trace, s: dict, tracker, rewarms: int, start: float,
+                 dur: float) -> tuple:
+    """12d's checks of one fleet run (name -> passed), and replica 0's
+    served queries, arrivals and host-ledger starts in its window, and
+    its dispatches that failed on the crash (each of a query that arrived
+    inside the window)."""
+    rep0 = trace.replicas[0]
+    crashed = tracker.crash_untils[0]
+    in_window = (rep0.arrival_times >= start) & \
+        (rep0.arrival_times < start + dur)
+    starts = rep0.arrival_times + rep0.queue_delays
+    late = int(np.count_nonzero((starts >= start) & (starts < start + dur)))
+    admitted = trace.num_queries - trace.num_shed
+    completed = int(trace.replica_counts.sum())
+    checks = {
+        "no dispatch of replica 0 inside its window (the fault "
+        "clock is the query's arrival)": not bool(in_window.any()),
+        "on_recover once per breaker probe":
+            rewarms == sum(tracker.probes),
+        "replica 0's breaker opened, and was probed after its "
+        "window": tracker.opens[0] >= 1 and tracker.probes[0] >= 1,
+        "completed + failed = admitted":
+            completed + int(s["num_failed"]) == admitted,
+        "replica 0 took a dispatch inside its window, which failed on "
+        "the crash":
+            len(crashed) >= 1 and all(math.isclose(u, start + dur)
+                                      for u in crashed),
+    }
+    return checks, (len(rep0.arrival_times), int(in_window.sum()), late,
+                    len(crashed))
+
+
+def availability_holds(with_retries: float, without: float) -> bool:
+    """12d's availability check: retries keep the fleet available."""
+    return with_retries >= FAULT_MIN_AVAILABILITY and with_retries > without
+
+
 def phase_faults(cfg, params, ex, counters, queries, probe) -> dict:
     """12d: a crash of replica 0 for FAULT_CRASH_SERVICES probe services
     and a flaky window over the whole run (p FAULT_FLAKY_P), poisson at
-    FAULT_LOAD x the probe's rate, retries FAULT_RETRIES and hedging after
-    FAULT_HEDGE_SERVICES services; then the same with retries 0; then one
-    engine under the query-indexed plan ENGINE_FAULTS, held against a
-    deterministic stand-in."""
+    FAULT_LOAD x the probe's rate routed by FAULT_ROUTER, retries
+    FAULT_RETRIES and hedging after FAULT_HEDGE_SERVICES services; then
+    the same with retries 0; then one engine under the query-indexed plan
+    ENGINE_FAULTS, held against a deterministic stand-in."""
     rate = FAULT_LOAD * probe["rate"]
-    # The crash starts at the arrival of the fleet's query n // 4, on the
-    # workload's clock (the fleet loop draws the same arrivals).
-    arrivals = np.cumsum(make_workload("poisson", rate=rate, seed=5)
-                         .inter_arrivals(len(queries)))
-    start = float(arrivals[len(queries) // 4])
-    dur = FAULT_CRASH_SERVICES * probe["service"]
-    plan = (f"crash@{start!r}+{dur!r}:r=0,"
-            f"flaky@0+{10 * float(arrivals[-1])!r}:p={FAULT_FLAKY_P}")
-    hedge = FAULT_HEDGE_SERVICES * probe["service"]
+    win = fault_window(rate, probe["service"], len(queries))
+    start, dur = win["start"], win["dur"]
     log(f"  poisson at {FAULT_LOAD} x R = {rate:.2f} q/s over "
-        f"{float(arrivals[-1]):.3f} s of arrivals; plan {plan}; hedge_after "
-        f"{1e3 * hedge:.2f} ms; breaker cooldown {FAULT_COOLDOWN} s")
+        f"{win['span']:.3f} s of arrivals, {FAULT_ROUTER}; plan "
+        f"{win['plan']}; hedge_after {1e3 * win['hedge']:.2f} ms; breaker "
+        f"cooldown {FAULT_COOLDOWN} s")
     warms = {"calls": 0}
     orig_warm = ex.warm_buckets
 
@@ -3275,38 +3488,20 @@ def phase_faults(cfg, params, ex, counters, queries, probe) -> dict:
             trace, s, _ = serve_fleet(
                 label, fleet_engines(cfg, params, ex, FLEET_REPLICAS),
                 queries, fleet_schedules(FLEET_REPLICAS), counters,
-                router="odin_aware", workload="poisson",
-                workload_kwargs=dict(rate=rate, seed=5), faults=plan,
-                retries=retries, hedge_after=hedge,
-                health_kwargs=dict(cooldown=FAULT_COOLDOWN))
+                retries=retries, **win["kwargs"])
             (tracker,) = ProbeCounter.made
-            rep0 = trace.replicas[0]
-            in_window = (rep0.arrival_times >= start) & \
-                (rep0.arrival_times < start + dur)
-            starts = rep0.arrival_times + rep0.queue_delays
-            late = int(np.count_nonzero((starts >= start)
-                                        & (starts < start + dur)))
-            admitted = trace.num_queries - trace.num_shed
-            completed = int(trace.replica_counts.sum())
+            checks, (served0, arrived, late, crashed) = fault_checks(
+                trace, s, tracker, warms["calls"], start, dur)
             log(f"    availability {s['availability']:.4f}, retried "
                 f"{int(s['num_retried'])}, hedged {int(s['num_hedged'])}, "
                 f"wasted_work_frac {s['wasted_work_frac']:.4f}, downtime "
                 f"{s['downtime_s']:.3f} s; breaker opens per replica "
                 f"{tracker.opens}, probes {tracker.probes}, on_recover "
                 f"re-warms {warms['calls']}; replica 0 served "
-                f"{len(rep0.arrival_times)}, arrivals in its window "
-                f"{int(in_window.sum())}, starts on the host ledger in its "
-                f"window {late} (arrived before it)")
-            checks = {
-                "no dispatch of replica 0 inside its window (the fault "
-                "clock is the query's arrival)": not bool(in_window.any()),
-                "on_recover once per breaker probe":
-                    warms["calls"] == sum(tracker.probes),
-                "replica 0's breaker opened, and was probed after its "
-                "window": tracker.opens[0] >= 1 and tracker.probes[0] >= 1,
-                "completed + failed = admitted":
-                    completed + int(s["num_failed"]) == admitted,
-            }
+                f"{served0}, arrivals in its window "
+                f"{arrived}, starts on the host ledger in its "
+                f"window {late} (arrived before it), dispatches failed "
+                f"on the crash (arrived inside the window) {crashed}")
             bad = [k for k, ok in checks.items() if not ok]
             if bad:
                 raise AssertionError(f"{label}: {bad}")
@@ -3315,7 +3510,7 @@ def phase_faults(cfg, params, ex, counters, queries, probe) -> dict:
         cluster_lib.HealthTracker = HealthTracker
         del ex.warm_buckets
     a, b = runs[FAULT_RETRIES]["availability"], runs[0]["availability"]
-    if not (a >= FAULT_MIN_AVAILABILITY and a > b):
+    if not availability_holds(a, b):
         raise AssertionError(f"availability with retries {a}, without {b}")
 
     # One engine, the query-indexed plan: outcomes depend on (seed, query,
@@ -4368,7 +4563,8 @@ def phase_train_bf16(fp32: dict) -> dict:
         f"MiB a layer, {4 * o_elems * cfg.num_blocks / 2**20:.1f} MiB over "
         f"{cfg.num_blocks} layers (a bf16 O: "
         f"{2 * o_elems * cfg.num_blocks / 2**20:.1f} MiB)")
-    return dict(counts=counts, step_s=step_s, losses=losses, busy=busy)
+    return dict(counts=counts, step_s=step_s, losses=losses, busy=busy,
+                peak=torch.cuda.max_memory_allocated())
 
 
 def max_abs_diff(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -4544,6 +4740,159 @@ def phase_train_cli() -> dict:
             and np.isfinite(last)):
         raise AssertionError(f"the training CLI's last line: {lines[-1]}")
     return dict(wall=wall)
+
+
+# -- phase 15: the device examples and the dry run's roofline ---------------
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (its ``__main__`` block stays
+    off)."""
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def k1_counts() -> dict:
+    return {name: n for name, n in vars(flash_attention).items()
+            if name.endswith("launches")}
+
+
+def phase_serve_example() -> dict:
+    """15a: ``examples/serve_interference_torch.py`` at its defaults (8
+    smoke-width qwen3-4b blocks in fp32, 80 queries of 128 tokens): every
+    section serves every query, every K1 launch is the fp32 kernel's
+    plain entry point, and each distinct shape's first launch is held
+    against the plain version at the fp32 cases' tolerance."""
+    example = load_example("serve_interference_torch")
+    reset_counts(flash_attention)
+    with K1Shapes() as shapes:
+        out = example.main(device="cuda")
+    counts = k1_counts()
+    launches = counts["launches"]
+    for name, s in out["schedulers"].items():
+        log(f"  15a {name}: mean latency {1e3 * s['mean_latency_s']:.2f} ms,"
+            f" p99 {1e3 * s['p99_latency_s']:.2f} ms, throughput "
+            f"{s['mean_throughput_qps']:.1f} q/s, rebalances "
+            f"{s['rebalances']}, serial_frac {s['serial_frac']:.3f}")
+    log(f"  15a batched (max_batch 8) against unbatched rebalance and trial "
+        f"accounting identical: {out['acct_match']}")
+    log(f"  15a K1 launches: {launches}, by route {counts}; by shape "
+        f"{shapes.counts}")
+    short = [k for k, n in out["served"].items()
+             if n != example.NUM_QUERIES]
+    if short:
+        raise AssertionError(f"15a: sections that did not serve all "
+                             f"{example.NUM_QUERIES} queries: {short}")
+    want = dict(counts, launches=launches, fp32_launches=launches,
+                tensor_core_launches=0, lse_launches=0, backward_launches=0,
+                bf16_lse_launches=0, bf16_backward_launches=0)
+    if not (launches > 0 and counts == want
+            and sum(shapes.counts.values()) == launches):
+        raise AssertionError(f"15a: K1 launches {counts}, by shape "
+                             f"{shapes.counts}")
+    readings = shapes.check()
+    return dict(launches=launches, readings=readings,
+                acct_match=out["acct_match"])
+
+
+def phase_train_example() -> dict:
+    """15b: ``examples/train_small_torch.py`` at its defaults (qwen3-100m,
+    4 x 128 tokens, 300 steps, fp32): the loss falls (the example asserts
+    it), K1 launches its fp32 forward twice, its LSE entry and its
+    backward once a block and step, and the first launch of each at this
+    shape is held against the plain version; the median step time,
+    tokens/s and the peak memory."""
+    example = load_example("train_small_torch")
+    ckpt = ROOT / "build" / "chip_smoke_train_small"
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()   # what earlier phases still hold
+    reset_counts(flash_attention)
+    with K1Shapes() as shapes, K1TrainLaunches() as train_launches:
+        out = example.main(checkpoint_dir=str(ckpt), device="cuda",
+                           log_every=1,
+                           log_fn=lambda line: line.startswith(
+                               ("step     0 ", "step   299 ")) and log(line))
+    counts = k1_counts()
+    peak = torch.cuda.max_memory_allocated()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    cfg = example.default_config()
+    hist = out["history"]
+    steps = len(hist)
+    steps_s = np.diff([0.0] + [h["wall_s"] for h in hist])
+    step_s = float(np.median(steps_s[1:]))
+    tokens = 4 * 128
+    shape = InputShape("train", 128, 4, "train")
+    flops = analytic_cost(cfg, shape).totals("train", remat=True)["flops"]
+    log(f"  15b {cfg.name}, {cfg.param_count() / 1e6:.1f} M parameters, "
+        f"{steps} steps: loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f};"
+        f" step time (host clock, synchronised, median of steps 1-"
+        f"{steps - 1}) {1e3 * step_s:.2f} ms; {tokens / step_s:.0f} "
+        f"tokens/s; {flops / step_s / 1e12:.2f} TFLOP/s of "
+        f"{flops / 1e12:.4f} TFLOP a step (launch/analytic.py); peak device "
+        f"memory {(peak - held) / 2**30:.2f} GiB above the "
+        f"{held / 2**30:.2f} GiB allocated when the phase began "
+        f"({peak / 2**30:.2f} GiB in all); K1 launches {counts}")
+    n = cfg.num_blocks * steps
+    want = dict(launches=2 * n, fp32_launches=2 * n, lse_launches=n,
+                backward_launches=n, tensor_core_launches=0,
+                bf16_lse_launches=0, bf16_backward_launches=0)
+    if counts != want:
+        raise AssertionError(f"15b: K1 launches {counts}, expected {want}")
+    if not (np.isfinite(hist[-1]["loss"])
+            and hist[-1]["loss"] < hist[0]["loss"]):
+        raise AssertionError("15b: the loss did not fall")
+    worst = train_launches.check()
+    worst["fwd"] = max([worst["fwd"]] + [m["max_abs_err"] for m in
+                                         shapes.check().values()])
+    return dict(counts=counts, step_s=step_s, peak=peak - held, worst=worst)
+
+
+#: step_mfu expected before the first card run of phase 15: analytic FLOPs
+#: over (the step time the records hold x the dtype's peak) -- PERF.md's
+#: 8.18 TFLOP qwen2-0.5b step at 300.61 ms fp32 and 214.26 ms bf16, the
+#: 6.881 TFLOP mamba2-370m step at 434.84 ms, and a 7.75 TFLOP qwen3-4b
+#: prefill in the 31-46 ms a clean query spends in its blocks.
+PREDICTED_STEP_MFU = {"13b": 0.41, "13e": 0.04, "13f": 0.24, "6": 0.20}
+STEP_MFU_LIMIT = 1.05          # no card beats its roofline
+
+
+def phase_roofline(steps: dict) -> dict:
+    """15c: the dry run (``launch/dryrun.py``, on the meta device) of the
+    steps the card timed: 13b, 13e, 13f and phase 6's prefill.  For each,
+    its predicted argument bytes and peak beside the measured peak, the
+    roofline bound beside the measured step, and step_mfu = analytic FLOPs
+    / (step time x the dtype's peak), which must not pass
+    STEP_MFU_LIMIT."""
+    out = {}
+    for key, (arch, shape, dtype, measured) in steps.items():
+        cfg = get_config(arch)
+        rep = dryrun.roofline_report(cfg, shape, dtype=dtype)
+        terms, mem = rep["terms"], rep["memory"]
+        bound_s = max(terms.t_compute, terms.t_memory, terms.t_collective)
+        peak = roofline.peak_flops(dtype)
+        mfu = terms.flops / (measured["step_s"] * peak)
+        log(f"  15c {key}: {arch} {shape.mode} {shape.global_batch} x "
+            f"{shape.seq_len} {str(dtype)[6:]}: arguments "
+            f"{mem['argument_bytes'] / 2**30:.2f} GiB, predicted peak "
+            f"{mem['total_bytes'] / 2**30:.2f} GiB (meta run "
+            f"{rep['seconds']:.1f} s) beside max_memory_allocated "
+            f"{measured['peak'] / 2**30:.2f} GiB; roofline bound "
+            f"{1e3 * bound_s:.2f} ms ({terms.bottleneck}; compute "
+            f"{1e3 * terms.t_compute:.2f}, memory {1e3 * terms.t_memory:.2f})"
+            f" beside the measured step {1e3 * measured['step_s']:.2f} ms; "
+            f"FLOPs analytic {terms.flops / 1e12:.4f} T, FlopCounterMode "
+            f"{rep['counted_flops'] / 1e12:.4f} T; step_mfu {mfu:.4f} at "
+            f"{peak / 1e12:.0f} TFLOP/s (predicted "
+            f"{PREDICTED_STEP_MFU[key]})")
+        if not mfu <= STEP_MFU_LIMIT:
+            raise AssertionError(f"15c {key}: step_mfu {mfu} above "
+                                 f"{STEP_MFU_LIMIT}")
+        out[key] = dict(step_mfu=mfu, bound_s=bound_s,
+                        total_bytes=mem["total_bytes"])
+    return out
 
 
 def main() -> None:
@@ -4805,6 +5154,23 @@ def main() -> None:
     free_memory()
     spmd = phase("phase 14: the SPMD stage pipeline, 4 gloo ranks on this "
                  "card", phase_spmd)
+    free_memory()
+    serve_ex = phase("phase 15a: examples/serve_interference_torch.py",
+                     phase_serve_example)
+    free_memory()
+    train_ex = phase("phase 15b: examples/train_small_torch.py",
+                     phase_train_example)
+    free_memory()
+    train_shape = InputShape("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    phase("phase 15c: the dry run's roofline of the steps timed here",
+          phase_roofline, {
+              "13b": (TRAIN_ARCH, train_shape, torch.float32, trained),
+              "13e": (TRAIN_ARCH, train_shape, torch.bfloat16, trained_bf16),
+              "13f": (MAMBA_TRAIN_ARCH, train_shape, torch.float32,
+                      trained_mamba),
+              "6": ("qwen3-4b", InputShape("prefill", SEQ, 1, "prefill"),
+                    torch.bfloat16, served["prefill"]),
+          })
 
     def worst(kernel: str, readings: list) -> float:
         return max([m["max_abs_err"] for m in readings]
@@ -4836,14 +5202,21 @@ def main() -> None:
     ]
     # The training path: K1's fp32 forward (both entry points) and its
     # backward, launched by phase 13b's steps.
+    # Phase 15's examples run the same kernels: serving in fp32 (15a) and
+    # training in fp32 (15b).
     k1_train = bwd["timed"][BACKWARD_TRAIN_CASE]
     rows += [
         ("flash_attention_fp32", "flash_attention.py:96",
-         trained["counts"]["fp32_launches"],
-         dict(k1_train["fwd"], max_abs_err=bwd["worst"]["fwd"])),
+         trained["counts"]["fp32_launches"] + serve_ex["launches"]
+         + train_ex["counts"]["fp32_launches"],
+         dict(k1_train["fwd"], max_abs_err=max(
+             [bwd["worst"]["fwd"], train_ex["worst"]["fwd"]]
+             + [m["max_abs_err"] for m in serve_ex["readings"].values()]))),
         ("flash_attention_bwd", "flash_attention.py:96",
-         trained["counts"]["backward_launches"],
-         dict(k1_train["bwd"], max_abs_err=bwd["worst"]["bwd"])),
+         trained["counts"]["backward_launches"]
+         + train_ex["counts"]["backward_launches"],
+         dict(k1_train["bwd"], max_abs_err=max(bwd["worst"]["bwd"],
+                                               train_ex["worst"]["bwd"]))),
     ]
     # The bf16 training path: K1's bf16 LSE entry and its bf16 backward,
     # launched by phase 13e's steps.

@@ -139,7 +139,7 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
-# Input shape (the JAX package's, for ``launch/analytic.py``)
+# Input shapes (the JAX package's, for ``launch/analytic.py`` and the dry run)
 # ---------------------------------------------------------------------------
 
 
@@ -149,6 +149,14 @@ class InputShape:
     seq_len: int
     global_batch: int
     mode: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -186,3 +194,28 @@ def get_smoke_config(arch: str) -> ModelConfig:
     """Reduced variant of the same family: <= 2 blocks, d_model <= 512,
     <= 4 experts."""
     return _module(arch).smoke_config()
+
+
+def shape_is_applicable(cfg: ModelConfig,
+                        shape: InputShape) -> Tuple[bool, str]:
+    """Whether (arch, shape) runs; returns (applicable, reason_if_not),
+    the JAX package's rule: an encoder has no decode step, and long_500k
+    needs a sub-quadratic mixer (SSM, hybrid or a sliding window)."""
+    if shape.mode == "decode" and not cfg.is_decoder:
+        return False, f"{cfg.name} is encoder-only: no decode step"
+    if shape.name == "long_500k":
+        subquadratic = (cfg.family in ("ssm", "hybrid")
+                        or cfg.sliding_window is not None)
+        if not subquadratic:
+            return False, (f"{cfg.name} is pure full-attention; long_500k "
+                           "requires the sliding-window variant "
+                           "(use long_context_variant())")
+    return True, ""
+
+
+def long_context_variant(cfg: ModelConfig, window: int = 8192) -> ModelConfig:
+    """Sliding-window variant of a dense arch for long_500k."""
+    if cfg.family == "ssm" or cfg.sliding_window is not None:
+        return cfg
+    return dataclasses.replace(cfg, sliding_window=window,
+                               name=cfg.name + "-swa")

@@ -12,8 +12,8 @@ hand-off:
 where ``ring(m) = (m - 1) / m`` (the classic ring-collective factor —
 zero for a single device), ``coll_i`` sums the per-layer collective
 costs of the stage's layers (profiled via
-the JAX package's ``launch.coll_profile.layer_coll_costs``, or a flat per-layer
-constant), and ``f`` is the *collective contention* factor a
+:func:`repro_torch.launch.coll_profile.layer_coll_costs`, or a flat
+per-layer constant), and ``f`` is the *collective contention* factor a
 ``kind="mesh"`` :class:`~repro_torch.core.events.InterferenceEvent` inflates
 (1.0 when quiet).
 
@@ -54,7 +54,7 @@ class MeshSpec:
     contiguous slice, every stage at least one device).
     ``coll_cost`` — flat per-layer collective cost in the run's time
     unit; ``coll_costs`` overrides it with a per-layer profile (e.g.
-    from the JAX package's ``launch.coll_profile.layer_coll_costs``).
+    from :func:`repro_torch.launch.coll_profile.layer_coll_costs`).
     """
     devices: int
     coll_cost: float = 0.0

@@ -54,7 +54,10 @@ class Model:
         ``dtype``).  Embedding-input models keep a token table too, for
         decode."""
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        # A meta tensor draws nothing (the dry run's shapes): its generator
+        # lives on the CPU, which has one.
+        gen = torch.Generator(device="cpu" if dev.type == "meta"
+                              else dev).manual_seed(seed)
         cfg = self.cfg
         return {
             "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype,

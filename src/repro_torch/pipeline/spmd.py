@@ -31,6 +31,7 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import StageMesh, make_stage_mesh
+from repro_torch.launch.roofline import CollectiveRecord
 from repro_torch.models import blocks as blk
 from repro_torch.models.layers import embed, rms_norm, unembed
 from repro_torch.util.tree import leaves, tree_map
@@ -80,7 +81,11 @@ class PipelineFn:
     and ``host_copies`` the tensors it moved through a host buffer: under
     gloo, whose point-to-point ops take CPU tensors only, a CUDA
     activation is copied to a host tensor to be sent and out of one when
-    received, and so is the final broadcast.
+    received, and so is the final broadcast.  ``collectives`` records the
+    bytes of each executed call under the JAX roofline's kind names: a
+    hand-off as ``collective-permute`` (JAX's ``ppermute``), the final
+    broadcast as ``all-reduce`` (its payload is what JAX's masked
+    ``psum`` moves).
     """
 
     def __init__(self, cfg: ModelConfig, mesh: StageMesh, stage_axis: str,
@@ -98,6 +103,7 @@ class PipelineFn:
         self.staged = mesh.backend == "gloo" and mesh.device.type == "cuda"
         self.sends = 0
         self.host_copies = 0
+        self.collectives = CollectiveRecord()
 
     def _wire(self, t: torch.Tensor) -> torch.Tensor:
         """The tensor the group moves for ``t``: a host copy under gloo."""
@@ -157,6 +163,8 @@ class PipelineFn:
                 ops.append(dist.P2POp(dist.isend, self._wire(y), self.next,
                                       self.mesh.group))
                 self.sends += 1
+                self.collectives.add("collective-permute", "stage hand-off",
+                                     y.numel() * y.element_size())
             if self.prev is not None and 0 <= t - (self.stage - 1) < M:
                 recv = self._buffer(x_cur)
                 ops.append(dist.P2POp(dist.irecv, recv, self.prev,
@@ -174,6 +182,8 @@ class PipelineFn:
         buf = (self._wire(outputs) if self.mesh.rank == self.last
                else self._buffer(outputs))
         dist.broadcast(buf, self.last, group=self.mesh.group)
+        self.collectives.add("all-reduce", "output broadcast",
+                             buf.numel() * buf.element_size())
         return self._landed(buf)
 
 

@@ -10,7 +10,8 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
     """``device`` as a :class:`torch.device`, or raise.
 
     Asking for CUDA on a machine without a usable card raises instead of
-    carrying on quietly on the CPU; the CPU is used only when asked for.
+    carrying on quietly on the CPU; the CPU is used only when asked for,
+    and so is the meta device (shapes without storage, the dry run's).
     """
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():

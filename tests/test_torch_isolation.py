@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``repro_torch`` (nor the card's
-check script) imports JAX or the JAX package, and asking for CUDA on a
-machine without a card fails instead of running on the CPU."""
+check script, nor the port's examples) imports JAX or the JAX package,
+and asking for CUDA on a machine without a card fails instead of running
+on the CPU."""
 import ast
 import os
 import pathlib
@@ -46,8 +47,11 @@ def _module_name_strings(path: pathlib.Path):
             yield node.value
 
 
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
+
+
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES,
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_module_imports_neither_jax_nor_repro(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
@@ -104,3 +108,13 @@ def test_chip_smoke_fails_without_cuda():
                        cwd=str(ROOT), timeout=120)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.name)
+def test_example_without_cpu_flag_fails_without_cuda(path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    r = subprocess.run([sys.executable, str(path)], capture_output=True,
+                       text=True, env=_env(), cwd=str(ROOT), timeout=120)
+    assert r.returncode != 0
+    assert "cuda" in r.stderr.lower()
