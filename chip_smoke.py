@@ -3,8 +3,8 @@ against their plain versions.
 
     python3 chip_smoke.py
 
-Phases, in the order they run (11, 12 and 13 run between 9 and 10, 14
-and 15 after 10); any
+Phases, in the order they run (11, 12 and 13 run between 9 and 10, 14,
+15 and 16 after 10); any
 failure raises and the script exits nonzero.  Each phase prints its wall
 time.
 
@@ -346,7 +346,26 @@ time.
       the roofline bound beside the measured step, and step_mfu (analytic
       FLOPs over the step time times the dtype's peak) beside its
       prediction; a step_mfu above 1.05 fails the phase.
-16. the total time, the card line again, one ``{"kernels": [...]}`` line,
+16. the production mesh and the sharding rules (``launch/mesh.py``,
+   ``launch/sharding.py``, ``models/sharding_ctx.py``,
+   ``launch/dryrun_pipeline.py``):
+   a. ``make_production_mesh`` with and without ``multi_pod`` over a fake
+      group of 256 / 512 ranks on the meta device (shape, axis names,
+      data axes); the sharded dry run of qwen3-32b x train_4k and
+      deepseek-moe-16b x train_4k on 16x16 and qwen3-8b x prefill_32k on
+      2x16x16, each under "auto" (which must pick tp, fsdp_all, dp_seq):
+      the per-device argument bytes, which must equal the sum over leaves
+      of the shard shapes DTensor gives their placements, and the peak
+      against one card's 80 GiB;
+   b. the pipeline dry run at its defaults (qwen3-32b, 16 stages, cap 8),
+      one pod and two: its printed lines, and the middle rank's
+      ``collective-permute`` bytes must be 4 x 2 x 1024 x 5120 x 2;
+   c. on a (1, 1) ``("data", "model")`` mesh over a world-1 NCCL group on
+      this card, full-width qwen3-4b's forward of 1 x 1024 tokens with the
+      activation spec (("data",), None, None) set and without it: logits
+      bit-equal, exactly 36 K1 launches each, 36 constrained block
+      entries with the spec; the group is destroyed after.
+17. the total time, the card line again, one ``{"kernels": [...]}`` line,
    and last ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM data-sheet peaks (``repro_torch/launch/roofline.py``):
@@ -453,7 +472,13 @@ from repro_torch.core import (  # noqa: E402
 )
 from repro_torch.core.mesh import MeshSpec  # noqa: E402
 from repro_torch.models.layers import embed, rms_norm  # noqa: E402
-from repro_torch.launch.mesh import spawn_ranks  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    build_mesh,
+    data_axes,
+    make_production_mesh,
+    production_group,
+    spawn_ranks,
+)
 from repro_torch.pipeline import (  # noqa: E402
     LocalPipelineExecutor,
     MeasuredTimeSource,
@@ -477,9 +502,12 @@ from repro_torch.schedulers.runtime import (  # noqa: E402
     RebalanceRuntime,
     RuntimeStep,
 )
-from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.configs.base import INPUT_SHAPES, InputShape  # noqa: E402
 from repro_torch.launch import measured_db  # noqa: E402
-from repro_torch.launch import dryrun, roofline  # noqa: E402
+from repro_torch.launch import dryrun, dryrun_pipeline, roofline  # noqa: E402
+from repro_torch.launch import sharding  # noqa: E402
+from repro_torch.launch import steps as launch_steps  # noqa: E402
+from repro_torch.models import sharding_ctx  # noqa: E402
 from repro_torch.launch.roofline import (  # noqa: E402
     HBM_BW,
     PEAK_BF16_FLOPS,
@@ -4895,6 +4923,161 @@ def phase_roofline(steps: dict) -> dict:
     return out
 
 
+# -- phase 16: the production mesh, the sharded and pipeline dry runs, and
+# the activation constraint on the card ----------------------------------
+
+#: 16a's sharded dry runs: (arch, shape, multi_pod), each under "auto".
+SHARDED_RUNS = (("qwen3-32b", "train_4k", False),
+                ("deepseek-moe-16b", "train_4k", False),
+                ("qwen3-8b", "prefill_32k", True))
+#: What the JAX dry run's auto_strategy picks for each of them.
+SHARDED_STRATEGIES = ("tp", "fsdp_all", "dp_seq")
+#: 16c: the spec pinned at block entries on a (1, 1) mesh of this card.
+CARD_ACTIVATION_SPEC = (("data",), None, None)
+
+
+def placement_bytes(cfg, shape, mesh, strategy: str) -> int:
+    """The per-device argument bytes of ``shape``'s step on ``mesh``, from
+    the shard shape DTensor gives each leaf under its placements."""
+    params = launch_steps.param_shapes(cfg)
+    specs = launch_steps.input_specs(cfg, shape)
+    dmesh = sharding.device_mesh(mesh)
+    total = 0
+
+    def add(tree):
+        nonlocal total
+        if isinstance(tree, sharding.LeafSharding):
+            total += math.prod(sharding.dtensor_shard_shape(
+                tree, dmesh)) * tree.itemsize
+        else:
+            for v in tree.values():
+                add(v)
+
+    for tree in dryrun.step_shardings(cfg, shape, params, specs, mesh,
+                                      strategy).values():
+        add(tree)
+    return total
+
+
+def phase_production_mesh() -> dict:
+    """16a: the production meshes and three sharded dry runs."""
+    for multi_pod, world in ((False, 256), (True, 512)):
+        with production_group(world):
+            mesh = make_production_mesh(multi_pod=multi_pod, device="meta")
+            log(f"  make_production_mesh(multi_pod={multi_pod}) over a fake "
+                f"group of {world} ranks: shape {mesh.shape}, axis names "
+                f"{mesh.axis_names}, data_axes {data_axes(mesh)}, "
+                f"{mesh.backend} on {mesh.device}")
+            want = ((("pod", "data", "model"), (2, 16, 16)) if multi_pod
+                    else (("data", "model"), (16, 16)))
+            if (mesh.axis_names, tuple(mesh.shape.values())) != want:
+                raise AssertionError(f"16a: mesh {mesh.axis_names} "
+                                     f"{mesh.shape}, want {want}")
+    out = {}
+    for (arch, shape_name, multi_pod), want in zip(SHARDED_RUNS,
+                                                    SHARDED_STRATEGIES):
+        t0 = time.perf_counter()
+        rep = dryrun.dry_run(arch, shape_name, verbose=False,
+                             multi_pod=multi_pod, strategy="auto")
+        mem, chips = rep["memory"], rep["chips"]
+        shape = INPUT_SHAPES[shape_name]
+        with production_group(chips):
+            mesh = make_production_mesh(multi_pod=multi_pod, device="meta")
+            placed = placement_bytes(get_config(arch), shape, mesh,
+                                     rep["strategy"])
+        log(f"  16a {arch} x {shape_name} x {rep['mesh']} ({chips} devices, "
+            f"{rep['strategy']}, activation spec {rep['activation_spec']}): "
+            f"arguments {mem['argument_bytes']} B = "
+            f"{mem['argument_bytes'] / 2**30:.3f} GiB a device (params "
+            f"{mem['params_bytes'] / 2**30:.3f}, optimizer "
+            f"{mem['opt_state_bytes'] / 2**30:.3f}, inputs "
+            f"{mem['input_bytes'] / 2**20:.3f} MiB), DTensor placements' "
+            f"shards {placed} B; peak {mem['total_bytes'] / 2**30:.2f} GiB "
+            f"a device against one card's {dryrun.CARD_BYTES / 2**30:.0f} "
+            f"GiB: fits {mem['fits_one_card']}; bottleneck "
+            f"{rep['roofline']['bottleneck']}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if rep["strategy"] != want:
+            raise AssertionError(f"16a {arch}: auto picked "
+                                 f"{rep['strategy']}, JAX's pick is {want}")
+        if mem["argument_bytes"] != placed:
+            raise AssertionError(f"16a {arch}: {mem['argument_bytes']} B of "
+                                 f"arguments against {placed} B of shards")
+        out[arch] = dict(argument_bytes=mem["argument_bytes"],
+                         total_bytes=mem["total_bytes"])
+    return out
+
+
+def phase_pipeline_dryrun() -> dict:
+    """16b: ``launch/dryrun_pipeline.py`` at its defaults, one pod and
+    two: the middle rank sends one bf16 hand-off a microbatch."""
+    out = {}
+    cfg = get_config("qwen3-32b")
+    for multi_pod in (False, True):
+        r = dryrun_pipeline.pipeline_dry_run(cfg, multi_pod=multi_pod)
+        for line in dryrun_pipeline.report_lines(r):
+            log(f"  {line}")
+        M, mb, S = 4, 2, 1024
+        want = M * mb * S * cfg.d_model * 2
+        got = r["collectives"]["collective-permute"]
+        if (r["n_stages"], r["cap"]) != (16, 8) or got != want:
+            raise AssertionError(f"16b: {r['n_stages']} stages, cap "
+                                 f"{r['cap']}, collective-permute {got} B, "
+                                 f"want 16, 8 and {want} B")
+        out[r["mesh"]] = r
+    return out
+
+
+def phase_card_constraint() -> dict:
+    """16c: full-width qwen3-4b's forward with and without the activation
+    spec on a (1, 1) mesh over a world-1 NCCL group on this card: logits
+    bit-equal, 36 K1 launches each, 36 constrained block entries."""
+    cfg, params = init_model(get_config("qwen3-4b"))
+    model = Model(cfg)
+    tokens = torch.as_tensor(np.random.default_rng(16).integers(
+        0, cfg.vocab_size, (1, SEQ)), device="cuda")
+    init_file = ROOT / "build" / f"nccl_rendezvous_{os.getpid()}"
+    init_file.parent.mkdir(parents=True, exist_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{init_file}",
+                            rank=0, world_size=1)
+    runs = {}
+    try:
+        mesh = build_mesh((1, 1), ("data", "model"), device="cuda:0")
+        for label, spec in (("no spec", None),
+                            ("spec", CARD_ACTIVATION_SPEC)):
+            with sharding_ctx.activation_spec(spec, mesh), \
+                    torch.inference_mode():
+                entries = sharding_ctx.constrained
+                reset_counts(flash_attention)
+                logits, _ = model.forward(params, tokens)
+                torch.cuda.synchronize()
+                runs[label] = dict(
+                    logits=logits, k1=flash_attention.tensor_core_launches,
+                    all=flash_attention.launches,
+                    entries=sharding_ctx.constrained - entries)
+    finally:
+        dist.destroy_process_group()
+        init_file.unlink(missing_ok=True)
+    same = torch.equal(runs["no spec"]["logits"], runs["spec"]["logits"])
+    log(f"  {mesh.backend} mesh {mesh.shape} on {mesh.device}; spec "
+        f"{CARD_ACTIVATION_SPEC}: logits {tuple(runs['spec']['logits'].shape)}"
+        f" bit-equal to the run without it: {same}; K1 tensor-core launches "
+        f"{runs['no spec']['k1']} / {runs['spec']['k1']}, constrained "
+        f"block entries {runs['no spec']['entries']} / "
+        f"{runs['spec']['entries']}, shard shape "
+        f"{sharding_ctx.last_shard_shape}")
+    want = cfg.num_blocks
+    counts = {k: (r["k1"], r["all"], r["entries"]) for k, r in runs.items()}
+    if not (same and counts == {"no spec": (want, want, 0),
+                                "spec": (want, want, want)}
+            and sharding_ctx.last_shard_shape == (1, SEQ, cfg.d_model)
+            and not dist.is_initialized()):
+        raise AssertionError(f"16c: (K1 tensor-core, K1, constrained) "
+                             f"{counts}, want {want} each; bit-equal "
+                             f"{same}; shard {sharding_ctx.last_shard_shape}")
+    return dict(launches=sum(r["k1"] for r in runs.values()))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
@@ -5171,6 +5354,14 @@ def main() -> None:
               "6": ("qwen3-4b", InputShape("prefill", SEQ, 1, "prefill"),
                     torch.bfloat16, served["prefill"]),
           })
+    free_memory()
+    phase("phase 16a: the production meshes and the sharded dry run",
+          phase_production_mesh)
+    phase("phase 16b: the pipeline dry run on the production mesh",
+          phase_pipeline_dryrun)
+    constrained = phase("phase 16c: the activation constraint on this card",
+                        phase_card_constraint)
+    free_memory()
 
     def worst(kernel: str, readings: list) -> float:
         return max([m["max_abs_err"] for m in readings]
@@ -5183,8 +5374,8 @@ def main() -> None:
     k3 = dict(k3, max_abs_err=worst("K3", [k3]))
     # Launches on the main paths: the closed-loop serves (qwen3-4b,
     # deepseek-moe-16b, hubert-xlarge), the batched one, phase 11's
-    # serves and block-time measurement, phase 12's fleets and phase 14's
-    # ranks for K1; the decode steps of every cached path for K2; the
+    # serves and block-time measurement, phase 12's fleets, phase 14's
+    # ranks and phase 16c's forwards for K1; the decode steps of every cached path for K2; the
     # closed-loop and batched serves of mamba2-370m and jamba's forward and
     # prefill for K3.
     rows = [
@@ -5192,7 +5383,7 @@ def main() -> None:
          served["counts"]["tensor_core_launches"]
          + batched["qwen3-4b"]["launches"] + ds["served"]["launches"]
          + hub["served"]["launches"] + k1_phase11 + fleet["launches"]
-         + spmd["launches"], k1),
+         + spmd["launches"] + constrained["launches"], k1),
         ("decode_attention", "decode_attention.py:78",
          cached["qwen3-4b"]["launches"] + sum(c["k2"] for c in cached_10),
          k2),

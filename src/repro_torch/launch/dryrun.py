@@ -1,19 +1,26 @@
-"""One-card dry run: every (arch x input-shape) step on the meta device.
+"""Dry run: every (arch x input-shape) step on the meta device.
 
 The port's counterpart of the JAX package's ``launch/dryrun.py``.  Where
-JAX lowers and compiles each step for a 256- or 512-chip TPU mesh, this
-runs the step once on the meta device (shapes without storage: nothing
-is allocated, nothing is computed) as one NVIDIA H100 would run it, and
-reports:
+JAX lowers and compiles each step for its 16x16 or 2x16x16 production
+mesh, this runs the step once on the meta device (shapes without storage:
+nothing is allocated, nothing is computed) and reports, for one NVIDIA
+H100 or, with ``--strategy`` or ``--multi-pod``, for each device of the
+production mesh (``launch/mesh.make_production_mesh`` over a fake process
+group of 256 or 512 ranks):
 
 * memory: the step's arguments summed exactly from the meta tensors
   (parameters, AdamW's state for train, the batch, the KV/SSM cache for
   decode), its outputs, and for train the gradients and the activations
   autograd keeps (``torch.autograd.graph.saved_tensors_hooks``), and
-  whether the peak fits one card's 80 GiB;
+  whether the peak fits one card's 80 GiB.  On a mesh each figure is one
+  device's: the shards that the strategy's rules (``launch/sharding.py``)
+  give it, with the activation spec pinned at block entries
+  (``models/sharding_ctx.py``) as the JAX dry run pins it;
 * FLOPs: ``torch.utils.flop_counter.FlopCounterMode``'s count of the
   step's products, beside ``launch/analytic.py``'s;
-* the roofline terms for one card (``launch/roofline.py``).
+* the roofline terms over the report's cards (``launch/roofline.py``).
+  A sharded step's collectives are not derived: no SPMD compiler
+  partitions the step (``NO_SPMD``).
 
 Attention runs its plain path (``impl="ref"``) and the Mamba2 scan the
 model's chunked form (``models/mamba2.ssd_chunked``, the JAX model's own),
@@ -24,17 +31,16 @@ exceed the analytic ones (which count the kernels' causal culling).
 
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k \\
+        [--multi-pod] [--strategy auto|tp|zero3|dp_seq|fsdp_all] \\
         [--out results/dryrun_torch]
-    python -m repro_torch.launch.dryrun --all
-
-``--multi-pod`` and ``--strategy`` (the JAX dry run's mesh and
-sharding strategy) wait for the port's ``launch/sharding.py``, and are refused.
+    python -m repro_torch.launch.dryrun --all [--multi-pod]
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import json
+import math
 import os
 import sys
 import time
@@ -55,23 +61,41 @@ from repro_torch.configs.base import (
     shape_is_applicable,
 )
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.launch import analytic as an
 from repro_torch.launch import roofline as rl
+from repro_torch.launch import sharding as sh
 from repro_torch.launch import steps as st
+from repro_torch.launch.mesh import (
+    data_axes,
+    make_production_mesh,
+    production_group,
+)
 from repro_torch.models import blocks as blk
-from repro_torch.models import mamba2
+from repro_torch.models import mamba2, sharding_ctx
 from repro_torch.util.tree import tree_map
 
 CARD_BYTES = 80 * 2 ** 30       # one H100's device memory
 TAG = "1xh100"                  # the report's mesh: one card
-NO_MESH = ("none: one card; the JAX dry run's 16x16 and 2x16x16 TPU meshes "
-           "wait for the port's launch/sharding.py")
+NO_MESH = ("none: one card; --strategy or --multi-pod give the 16x16 or "
+           "2x16x16 production mesh")
+STRATEGIES = ("auto", "tp", "zero3", "dp_seq", "fsdp_all")
+NO_SPMD = ("none: no SPMD compiler partitions the step, so its collectives "
+           "are not derived (DTensor cannot carry the model's ops); the "
+           "bottleneck weighs compute and memory only")
 NO_COMPILE = ("none: eager PyTorch compiles no step (the port's kernels "
               "build with nvcc at first use)")
 TEMP_COUNTS = ("train: gradients + the activations autograd keeps with "
                "remat (outside the blocks, each block's input, one block's "
                "recomputed ones); inference: 0, a forward's transient "
                "buffers are not modelled")
+SHARDED_COUNTS = ("per device: arguments, the shards launch/sharding.py "
+                  "gives params, the ZeRO-1 optimizer state, the batch and "
+                  "the decode cache; outputs at the same rules (train: params "
+                  "and optimizer state, and the metrics whole; logits at the "
+                  "batch's rule, prefill's cache at the cache's); gradients "
+                  "as the params; the kept activations divided as the "
+                  "activation spec divides [B, S, d] (whole without one)")
 
 
 def _storages(tensors: Iterable) -> Dict[int, int]:
@@ -140,16 +164,59 @@ def _chunked_scan(x, dt, A, B, C, *, chunk: int = 256, impl: str = "auto"):
     return y, state.float()
 
 
+def _plain_attention(q, k, v, *, causal: bool = True, window=None,
+                     impl: str = "auto"):
+    """``ops.flash_attention``'s plain path on any device."""
+    return flash_attention_ref(q, k, v, causal=causal, window=window)
+
+
 @contextlib.contextmanager
 def plain_kernels():
-    """While active, the Mamba2 scan runs the chunked form (the attention
-    kernels take ``impl="ref"`` from the steps)."""
-    saved = ops.ssd_scan
-    ops.ssd_scan = _chunked_scan
+    """While active, the Mamba2 scan runs the chunked form and attention
+    its plain path (the steps ask for it with ``impl="ref"`` too), both
+    of which run on the meta device."""
+    saved = ops.ssd_scan, ops.flash_attention
+    ops.ssd_scan, ops.flash_attention = _chunked_scan, _plain_attention
     try:
         yield
     finally:
-        ops.ssd_scan = saved
+        ops.ssd_scan, ops.flash_attention = saved
+
+
+def auto_strategy(cfg: ModelConfig, shape: InputShape) -> str:
+    """The JAX dry run's strategy for (arch, shape).
+
+    * train: fine-grained MoE (small experts, high top-k) moves fewer
+      bytes gathering weights than dispatching tokens -> "fsdp_all";
+      everything else "tp" (GQA-aware tensor/expert parallel + ZeRO-1).
+    * inference: models whose bf16 params fit comfortably when stored
+      sharded over the data axes run sequence-parallel "dp_seq"
+      (attention fully local per device); larger models run "tp".
+    """
+    pbytes = cfg.param_count() * 2
+    if shape.mode == "train":
+        if cfg.moe is not None and cfg.moe.d_expert <= 2048:
+            return "fsdp_all"
+        return "tp"
+    if shape.mode == "prefill" and pbytes <= 70e9:
+        return "dp_seq"
+    return "tp"
+
+
+def activation_spec_for(strategy: str, mesh, batch: int):
+    """The spec pinned at block entries, as the JAX dry run picks it:
+    batch on the data axes ("fsdp_all": over the whole mesh when it
+    divides the batch; "dp_seq": + sequence on model); None when the data
+    axes do not divide the batch."""
+    fsdp = data_axes(mesh)
+    size = math.prod(mesh.shape.values())
+    if strategy == "fsdp_all" and batch % size == 0:
+        return (fsdp + ("model",), None, None)
+    if strategy == "dp_seq":
+        return (fsdp, "model", None)
+    if batch % (mesh.shape["data"] * mesh.shape.get("pod", 1)) == 0:
+        return (fsdp, None, None)
+    return None
 
 
 def _one_block_saved(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> int:
@@ -166,19 +233,80 @@ def _one_block_saved(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> int:
     return saved.bytes
 
 
-def run_step(cfg: ModelConfig, shape: InputShape,
-             dtype=st.PARAM_DTYPE) -> Dict:
+def step_shardings(cfg: ModelConfig, shape: InputShape, params: Dict,
+               specs: Dict, mesh, strategy: str) -> Dict:
+    """The step's argument shardings on ``mesh``, by what they shard:
+    params, opt (train), inputs (the batch, or decode's tokens and index)
+    and cache (decode), as the JAX dry run places each."""
+    out = {"params": sh.params_shardings(params, mesh, strategy, cfg=cfg)}
+    if shape.mode == "train":
+        out["opt"] = sh.opt_state_shardings(st.opt_state_shapes(params),
+                                            out["params"], mesh, strategy)
+        out["inputs"] = sh.batch_pspec(specs["batch"], mesh, strategy)
+    elif shape.mode == "prefill":
+        out["inputs"] = sh.batch_pspec(specs, mesh, strategy)
+    else:
+        out["inputs"] = sh.batch_pspec({"tokens": specs["tokens"],
+                                        "index": specs["index"]}, mesh)
+        out["cache"] = sh.cache_shardings(specs["cache"], mesh,
+                                          shape.global_batch)
+    return out
+
+
+def _per_device(mem: Dict, cfg: ModelConfig, shape: InputShape, out,
+                shardings: Dict, mesh, strategy: str, act_spec) -> Dict:
+    """``mem``'s figures for one device of ``mesh`` (``SHARDED_COUNTS``)."""
+    nbytes = {k: sh.sharded_bytes(v) for k, v in shardings.items()}
+    B, S = shape.global_batch, shape.seq_len
+    per = dict(mem, params_bytes=nbytes["params"],
+               opt_state_bytes=nbytes.get("opt", 0),
+               input_bytes=nbytes["inputs"], cache_bytes=nbytes.get("cache",
+                                                                    0))
+    if shape.mode == "train":
+        per["grad_bytes"] = per["params_bytes"]
+        whole = (B, S, cfg.d_model)
+        kept = (1.0 if act_spec is None else
+                math.prod(sharding_ctx.shard_shape(whole, act_spec, mesh))
+                / math.prod(whole))
+        per["saved_activation_bytes"] = math.ceil(
+            mem["saved_activation_bytes"] * kept)
+        per["output_bytes"] = (per["params_bytes"] + per["opt_state_bytes"]
+                               + tree_bytes(out[2]))
+    elif shape.mode == "prefill" and cfg.is_decoder:
+        logits, cache = out
+        per["output_bytes"] = (
+            sh.sharded_bytes(sh.batch_pspec(logits, mesh, strategy))
+            + sh.sharded_bytes(sh.cache_shardings(cache, mesh, B)))
+    elif shape.mode == "prefill":
+        per["output_bytes"] = sh.sharded_bytes(sh.batch_pspec(out, mesh,
+                                                              strategy))
+    else:
+        per["output_bytes"] = sh.sharded_bytes(sh.batch_pspec(out[0], mesh))
+    per["argument_bytes"] = (per["params_bytes"] + per["opt_state_bytes"]
+                             + per["input_bytes"] + per["cache_bytes"])
+    return per
+
+
+def run_step(cfg: ModelConfig, shape: InputShape, dtype=st.PARAM_DTYPE,
+             mesh=None, strategy: Optional[str] = None) -> Dict:
     """Run ``shape``'s step for ``cfg`` once on the meta device, with
     parameters in ``dtype``; returns its memory (bytes) and counted
-    operations."""
+    operations.  With a ``mesh`` (and a ``strategy`` other than "auto")
+    the memory is one device's, and the step runs with the activation
+    spec the JAX dry run pins set (``activation_spec``)."""
     params = st.param_shapes(cfg, dtype)
     specs = st.input_specs(cfg, shape, dtype)
     mem = {"params_bytes": tree_bytes(params), "opt_state_bytes": 0,
            "input_bytes": 0, "cache_bytes": 0, "grad_bytes": 0,
            "saved_activation_bytes": 0}
+    act_spec, pinned = None, contextlib.nullcontext()
+    if mesh is not None:
+        shardings = step_shardings(cfg, shape, params, specs, mesh, strategy)
+        act_spec = activation_spec_for(strategy, mesh, shape.global_batch)
+        pinned = sharding_ctx.activation_spec(act_spec, mesh)
     flops, nbytes = FlopCounterMode(display=False), OpBytes()
     t0 = time.perf_counter()
-    with plain_kernels():
+    with plain_kernels(), pinned:
         if shape.mode == "train":
             opt_state = st.opt_state_shapes(params)
             mem["opt_state_bytes"] = tree_bytes(opt_state)
@@ -217,6 +345,9 @@ def run_step(cfg: ModelConfig, shape: InputShape,
     mem["argument_bytes"] = sum(arg_storages.values())
     mem["output_bytes"] = sum(b for k, b in _storages(tree_leaves(out)).items()
                               if k not in arg_storages)
+    if mesh is not None:
+        mem = _per_device(mem, cfg, shape, out, shardings, mesh, strategy,
+                          act_spec)
     mem["temp_bytes"] = mem["grad_bytes"] + mem["saved_activation_bytes"]
     # The peak: the arguments, and the larger of what the end of the
     # backward holds (every gradient, the kept activations at most) and
@@ -225,28 +356,35 @@ def run_step(cfg: ModelConfig, shape: InputShape,
         mem["temp_bytes"], mem["grad_bytes"] + mem["output_bytes"])
     mem["card_bytes"] = CARD_BYTES
     mem["fits_one_card"] = mem["total_bytes"] <= CARD_BYTES
-    return {"seconds": seconds, "memory": mem,
+    return {"seconds": seconds, "memory": mem, "activation_spec": act_spec,
             "counted_flops": float(flops.get_total_flops()),
             "counted_bytes": float(nbytes.bytes)}
 
 
 def roofline_report(cfg: ModelConfig, shape: InputShape,
-                    dtype=st.PARAM_DTYPE) -> Dict:
-    """``run_step`` and the one-card roofline terms of the step (analytic
-    FLOPs and bytes, with remat as ``steps.make_train_step_fn`` applies
-    it; the peak of ``dtype``'s products, TF32 off as the port runs)."""
-    ran = run_step(cfg, shape, dtype)
+                    dtype=st.PARAM_DTYPE, mesh=None,
+                    strategy: Optional[str] = None) -> Dict:
+    """``run_step`` and the roofline terms of the step over one card, or
+    over ``mesh``'s devices (analytic FLOPs and bytes, with remat as
+    ``steps.make_train_step_fn`` applies it; the peak of ``dtype``'s
+    products, TF32 off as the port runs)."""
+    ran = run_step(cfg, shape, dtype, mesh=mesh, strategy=strategy)
+    chips = 1 if mesh is None else math.prod(mesh.shape.values())
     analytic = an.analytic_totals(cfg, shape, remat=True)
-    terms = rl.analyze(ran["counted_flops"], 1, dtype=dtype, tf32=False,
+    terms = rl.analyze(ran["counted_flops"], chips, dtype=dtype, tf32=False,
                        counted_bytes=ran["counted_bytes"],
                        model_flops=rl.model_flops_for(cfg, shape),
                        analytic=analytic)
     return dict(ran, terms=terms, analytic=analytic)
 
 
-def dry_run(arch: str, shape_name: str, verbose: bool = True) -> Dict:
+def dry_run(arch: str, shape_name: str, verbose: bool = True, *,
+            multi_pod: bool = False, strategy: Optional[str] = None) -> Dict:
     """The report of one combination (the counterpart of the JAX
-    ``lower_and_compile``)."""
+    ``lower_and_compile``): one card's, or with ``multi_pod`` or a
+    ``strategy`` ("auto" picks JAX's, :func:`auto_strategy`) one device's
+    of the production mesh, made here in a fake group of 256 or 512
+    ranks (which raises if a default group exists already)."""
     shape = INPUT_SHAPES[shape_name]
     cfg0 = get_config(arch)
     ok, why = shape_is_applicable(cfg0, shape)
@@ -259,14 +397,25 @@ def dry_run(arch: str, shape_name: str, verbose: bool = True) -> Dict:
                 "reason": why}
     else:
         cfg = cfg0
-    rep = roofline_report(cfg, shape)
+    sharded = multi_pod or strategy is not None
+    if not sharded:
+        rep = roofline_report(cfg, shape)
+        tag, chips = TAG, 1
+    else:
+        if strategy in (None, "auto"):
+            strategy = auto_strategy(cfg, shape)
+        chips = 512 if multi_pod else 256
+        with production_group(chips):
+            mesh = make_production_mesh(multi_pod=multi_pod, device="meta")
+            rep = roofline_report(cfg, shape, mesh=mesh, strategy=strategy)
+        tag = "2x16x16" if multi_pod else "16x16"
     terms, mem = rep["terms"], rep["memory"]
     result = {
         "arch": arch,
         "shape": shape_name,
-        "mesh": NO_MESH,
-        "strategy": NO_MESH,
-        "chips": 1,
+        "mesh": tag if sharded else NO_MESH,
+        "strategy": strategy if sharded else NO_MESH,
+        "chips": chips,
         "variant": variant,
         "skipped": False,
         "mode": shape.mode,
@@ -295,11 +444,19 @@ def dry_run(arch: str, shape_name: str, verbose: bool = True) -> Dict:
             "peak_flops": rl.peak_flops(terms.dtype, terms.tf32),
         },
     }
+    if sharded:
+        result["memory"]["counts"] = SHARDED_COUNTS
+        result["activation_spec"] = rep["activation_spec"]
+        result["roofline"].update(collective_bytes=NO_SPMD,
+                                  collective_breakdown=NO_SPMD,
+                                  t_collective_s=NO_SPMD)
     if verbose:
-        print(f"[dryrun] {arch} x {shape_name} x {TAG}: meta run "
+        where = ("one card" if not sharded else
+                 f"one of {chips} devices ({strategy})")
+        print(f"[dryrun] {arch} x {shape_name} x {tag}: meta run "
               f"{rep['seconds']:.1f}s, peak {mem['total_bytes'] / 2**30:.2f}"
-              f" GiB (arguments {mem['argument_bytes'] / 2**30:.2f}), fits "
-              f"one card: {mem['fits_one_card']}, bottleneck="
+              f" GiB (arguments {mem['argument_bytes'] / 2**30:.2f}) on "
+              f"{where}, fits one card: {mem['fits_one_card']}, bottleneck="
               f"{terms.bottleneck}", flush=True)
         print(f"  flops: counted {rep['counted_flops']:.3e}, analytic "
               f"{terms.flops:.3e}; bytes: counted {terms.hlo_bytes:.3e}, "
@@ -310,40 +467,42 @@ def dry_run(arch: str, shape_name: str, verbose: bool = True) -> Dict:
 def main(argv: Optional[list] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.dryrun",
-        description="One-card dry run of each step on the meta device.")
+        description="Dry run of each step on the meta device, for one card "
+                    "or for a device of the production mesh.")
     ap.add_argument("--arch", choices=ARCH_IDS)
     ap.add_argument("--shape", choices=tuple(INPUT_SHAPES))
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="refused: TPU meshes wait for launch/sharding.py")
-    ap.add_argument("--strategy", default=None,
-                    help="refused: sharding strategies wait for "
-                         "launch/sharding.py")
+                    help="the 2x16x16 mesh (512 devices), not 16x16")
+    ap.add_argument("--strategy", default=None, choices=STRATEGIES,
+                    help="sharding strategy on the production mesh (auto: "
+                         "the JAX dry run's pick); without it and "
+                         "--multi-pod, one card's report")
     ap.add_argument("--out", default="results/dryrun_torch")
     args = ap.parse_args(argv)
-    if args.multi_pod or args.strategy is not None:
-        ap.error("--multi-pod and --strategy need the port's "
-                 "launch/sharding.py (DTensor placements over a mesh), "
-                 "which is not written yet; this dry run is one card's")
     if not args.all and (args.arch is None or args.shape is None):
         ap.error("give --arch and --shape, or --all")
 
     combos = ([(args.arch, args.shape)] if not args.all else
               [(a, s) for a in ARCH_IDS for s in INPUT_SHAPES])
+    sharded = args.multi_pod or args.strategy is not None
+    tag = (TAG if not sharded else "2x16x16" if args.multi_pod
+           else "16x16")
     os.makedirs(args.out, exist_ok=True)
     failures = 0
     for arch, shape in combos:
-        tag = f"{arch}__{shape}__{TAG}"
+        name = f"{arch}__{shape}__{tag}"
         try:
-            res = dry_run(arch, shape)
+            res = dry_run(arch, shape, multi_pod=args.multi_pod,
+                          strategy=args.strategy)
         except Exception as e:  # noqa: BLE001
             failures += 1
             res = {"arch": arch, "shape": shape, "error": str(e),
                    "traceback": traceback.format_exc()}
-            print(f"[dryrun] FAIL {tag}: {e}", flush=True)
+            print(f"[dryrun] FAIL {name}: {e}", flush=True)
         if res.get("skipped"):
-            print(f"[dryrun] skip {tag}: {res['reason']}", flush=True)
-        with open(os.path.join(args.out, tag + ".json"), "w") as f:
+            print(f"[dryrun] skip {name}: {res['reason']}", flush=True)
+        with open(os.path.join(args.out, name + ".json"), "w") as f:
             json.dump(res, f, indent=1)
     return 1 if failures else 0
 

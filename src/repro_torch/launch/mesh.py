@@ -1,7 +1,7 @@
-"""Stage meshes over a ``torch.distributed`` process group.
+"""Meshes over a ``torch.distributed`` process group.
 
-Mirrors the stage-mesh half of the JAX package's ``launch/mesh.py``
-(``build_mesh``, ``make_stage_mesh``, ``data_axes``).  Where a JAX mesh
+Mirrors the JAX package's ``launch/mesh.py`` (``build_mesh``,
+``make_production_mesh``, ``make_stage_mesh``, ``data_axes``).  Where a JAX mesh
 lays devices out on named axes, a :class:`StageMesh` lays out the first
 ranks of the default process group, which the caller has initialised:
 rank ``r`` sits at the row-major coordinates of ``r`` in the mesh's shape,
@@ -17,9 +17,14 @@ guessed, and nothing falls back from one backend to the other:
 * ``gloo`` runs anywhere, on the device the caller names.  Its
   point-to-point ops take CPU tensors only, so the pipeline hands CUDA
   activations on through a host buffer (``pipeline/spmd.py``).
+* ``fake`` has one use: the dry runs' production meshes of 256 or 512
+  ranks in one process (:func:`production_group`), the counterpart of the
+  JAX dry runs' placeholder host devices.  Its collectives move nothing,
+  so it runs only on the meta device, and only when the caller names it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -33,7 +38,9 @@ import torch.multiprocessing as mp
 
 from repro_torch.util.device import resolve_device
 
-BACKENDS = ("gloo", "nccl")
+BACKENDS = ("gloo", "nccl")      # what spawn_ranks starts
+FAKE = "fake"                    # production_group's, on the meta device
+PRODUCTION_WORLDS = (256, 512)   # the 16x16 and 2x16x16 meshes' ranks
 # Seconds that spawn_ranks waits for the other ranks once one has failed,
 # and for all of them to finish.
 FAILURE_GRACE = 10.0
@@ -93,6 +100,7 @@ def rank_device(backend: str, rank: int, world_size: int,
     ``nccl``: ``cuda:{rank}``, one card a rank (raises when the host has
     fewer cards than ranks, or when ``device`` names another).  ``gloo``:
     ``device`` (``"cuda"`` when None) with its index made explicit.
+    ``fake``: the meta device, which the caller must name.
     """
     if backend == "nccl":
         cards = torch.cuda.device_count()
@@ -109,8 +117,13 @@ def rank_device(backend: str, rank: int, world_size: int,
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         return dev
-    raise ValueError(f"backend {backend!r}: the stage mesh runs over "
-                     f"{' or '.join(BACKENDS)}")
+    if backend == FAKE:
+        if device is None or torch.device(device).type != "meta":
+            raise ValueError(f"the {FAKE} backend moves no data: it runs "
+                             f"only on device='meta', not {device}")
+        return torch.device("meta")
+    raise ValueError(f"backend {backend!r}: a mesh runs over "
+                     f"{', '.join(BACKENDS + (FAKE,))}")
 
 
 def build_mesh(shape: Sequence[int], axes: Sequence[str], *,
@@ -144,6 +157,44 @@ def build_mesh(shape: Sequence[int], axes: Sequence[str], *,
                      backend=backend,
                      device=rank_device(backend, rank, world, device),
                      group=group)
+
+
+@contextlib.contextmanager
+def production_group(world_size: int, rank: int = 0):
+    """A ``fake`` default group of ``world_size`` ranks (256 or 512) in
+    this process, which is its rank ``rank``; destroyed on exit.
+
+    The dry runs place the production mesh on it (with ``device="meta"``):
+    its collectives return at once and move nothing.  Raises
+    ``RuntimeError`` when a default group exists already, which it never
+    reuses or replaces.
+    """
+    if world_size not in PRODUCTION_WORLDS:
+        raise ValueError(f"a production group has {PRODUCTION_WORLDS} "
+                         f"ranks, not {world_size}")
+    if dist.is_initialized():
+        raise RuntimeError(f"a default process group "
+                           f"({dist.get_backend()}, {dist.get_world_size()} "
+                           f"ranks) exists already")
+    # Importing the module registers the backend.
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group(FAKE, store=FakeStore(), rank=rank,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: Union[str, torch.device, None] = None
+                         ) -> StageMesh:
+    """The production mesh: 16 x 16 on ``("data", "model")``, or with
+    ``multi_pod`` 2 x 16 x 16 on ``("pod", "data", "model")``, over the
+    default group's first 256 or 512 ranks (raises with fewer)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return build_mesh(shape, axes, device=device)
 
 
 def make_stage_mesh(num_stages: int, *, model_parallel: int = 1,

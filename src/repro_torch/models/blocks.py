@@ -29,6 +29,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2 as mamba_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import init_mlp, init_rms_norm, mlp, rms_norm
+from repro_torch.models.sharding_ctx import constrain
 
 ZERO_STATS = dict(aux_loss=0.0, router_z=0.0, dropped_frac=0.0)
 
@@ -106,6 +107,7 @@ def block_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     (``ops.flash_attention`` or ``ops.ssd_scan``).
     """
     stats = dict(ZERO_STATS)
+    x = constrain(x)
     for i, (mixer, ffn) in enumerate(_sublayer_kinds(cfg)):
         sub = params[f"sub{i}"]
         h = rms_norm(x, sub["ln1"]["scale"], cfg.rms_eps)

@@ -81,7 +81,11 @@ class PipelineFn:
     and ``host_copies`` the tensors it moved through a host buffer: under
     gloo, whose point-to-point ops take CPU tensors only, a CUDA
     activation is copied to a host tensor to be sent and out of one when
-    received, and so is the final broadcast.  ``collectives`` records the
+    received, and so is the final broadcast.  On a mesh on the meta device
+    (the dry run's, over a fake group, whose point-to-point ops refuse
+    meta tensors) each hand-off goes through an empty CPU tensor of its
+    shape and dtype, since a meta tensor holds nothing to copy, and lands
+    as a meta tensor again.  ``collectives`` records the
     bytes of each executed call under the JAX roofline's kind names: a
     hand-off as ``collective-permute`` (JAX's ``ppermute``), the final
     broadcast as ``all-reduce`` (its payload is what JAX's masked
@@ -101,12 +105,16 @@ class PipelineFn:
         # Every rank takes the outputs from the last stage's first rank.
         self.last = mesh.rank_at(**{stage_axis: self.n_stages - 1})
         self.staged = mesh.backend == "gloo" and mesh.device.type == "cuda"
+        self.meta = mesh.device.type == "meta"
         self.sends = 0
         self.host_copies = 0
         self.collectives = CollectiveRecord()
 
     def _wire(self, t: torch.Tensor) -> torch.Tensor:
-        """The tensor the group moves for ``t``: a host copy under gloo."""
+        """The tensor the group moves for ``t``: a host copy under gloo,
+        an empty CPU tensor on the meta device."""
+        if self.meta:
+            return self._buffer(t)
         if not self.staged:
             return t
         self.host_copies += 1
@@ -114,9 +122,12 @@ class PipelineFn:
 
     def _buffer(self, like: torch.Tensor) -> torch.Tensor:
         return torch.empty(like.shape, dtype=like.dtype,
-                           device="cpu" if self.staged else like.device)
+                           device="cpu" if self.staged or self.meta
+                           else like.device)
 
     def _landed(self, buf: torch.Tensor) -> torch.Tensor:
+        if self.meta:
+            return torch.empty(buf.shape, dtype=buf.dtype, device="meta")
         if not self.staged:
             return buf
         self.host_copies += 1
